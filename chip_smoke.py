@@ -1,0 +1,398 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Builds the port's CUDA kernel from ``sdr_receiver_dvb_t2_tpu_torch/ops/csrc``
+with nvcc, then:
+
+1. prints the card (name, power limit) and the build time;
+2. holds the LDPC kernel bit-exact against its plain PyTorch twin
+   (``exit_tile=1``) on NORMAL_C2_3 (256 codewords), SHORT_C2_3 and
+   SHORT_C1_2, mixing noise-free, noisy and hopeless codewords;
+3. receives two frames of the flagship mode (32K, GI 1/128, PP7 extended,
+   rotated 256QAM, LDPC 64800 r2/3, 202 FEC blocks per frame) made by the
+   port's transmitter with 27 dB AWGN, through ``TorchReceiver`` on the
+   card: 404/404 LDPC ok and BCH clean, TS bytes equal to the transmitted
+   stream, and the kernel launched.  Then times an 8-frame batch (1616
+   codewords) stage by stage, ``receive_stream`` over a few batches, and
+   the kernel against its twin, its bound and the BCH product's
+   ``torch.matmul`` at that size;
+4. prints the kernel table as one JSON line, the card's nvidia-smi line,
+   and last ``{"ok": true, "device": {...}}``.
+
+Any failed phase exits non-zero.  Without a GPU, or without the port's
+package beside it, it exits non-zero before printing any result.
+``--report PATH`` also writes every measurement as JSON to PATH.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+PKG = "sdr_receiver_dvb_t2_tpu_torch"
+DEVICE = "cuda"
+
+# H100 SXM peaks (NVIDIA data sheet): HBM rate and the non-tensor-core
+# 32-bit rate, used for the kernel's bound
+HBM_BYTES_PER_S = 3.35e12
+SCALAR_OPS_PER_S = 67e12
+# integer operations the layered update spends per edge and sweep:
+# pass 1 (load, subtract, |t|, offset, clamp, compare, two selects, sign
+# xor) and pass 2 (argmin compare, select, sign xor, negate, clip, add,
+# clip, store)
+OPS_PER_EDGE_SWEEP = 16
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout
+    return out.strip().splitlines()[0]
+
+
+def sync():
+    import torch
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def cuda_ms(fn, reps=5, warmup=1):
+    """Mean device milliseconds of fn() over reps, after warmup."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    sync()
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+        enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+# ---------------------------------------------------------------------------
+# test codewords
+# ---------------------------------------------------------------------------
+def coded_llrs(code_rate: str, fec_frame: str, n_cw: int, seed: int):
+    """int8 channel LLRs [n_cw, N] in kernel bit order of random BCH+LDPC
+    codewords: a quarter noise-free, a quarter hopeless (pure noise), the
+    rest at noise levels from easy to marginal.  Returns (llr, plp)."""
+    import numpy as np
+    from sdr_receiver_dvb_t2_tpu_torch.ops.ldpc import kernel_bit_order
+    from sdr_receiver_dvb_t2_tpu_torch.params import bch, ldpc as ldpc_par
+    from sdr_receiver_dvb_t2_tpu_torch.params.modes import (
+        CodeRate, FecFrame, PlpConfig)
+    plp = PlpConfig(code_rate=CodeRate[code_rate],
+                    fec_frame=FecFrame[fec_frame])
+    code = ldpc_par.get_code(plp.ldpc_table_name)
+    rng = np.random.default_rng(seed)
+    payload = rng.integers(0, 2, (n_cw, plp.k_bch), dtype=np.uint8)
+    cw = code.encode(bch.encode(payload, plp.bch_m, plp.bch_t))
+    kind = np.arange(n_cw) % 4          # 0 clean, 1 hopeless, 2-3 noisy
+    sigma = np.where(kind == 0, 0.0,
+                     rng.choice([3.0, 5.0, 6.5, 8.0], n_cw))
+    llr = (1 - 2 * cw.astype(np.float32)) * 12.0 + rng.normal(
+        0.0, 1.0, cw.shape) * sigma[:, None]
+    llr[kind == 1] = rng.normal(0.0, 20.0, (int(np.sum(kind == 1)), code.n))
+    llr = llr[:, kernel_bit_order(plp.ldpc_table_name)]
+    return np.ascontiguousarray(llr.round().clip(-127, 127).astype(np.int8)), plp
+
+
+def check_kernel_against_twin(llr, plp, max_iters=15):
+    """Kernel and twin (exit_tile=1) on the same int8 LLRs on the card.
+    Returns (result dict, kernel outputs); raises on any difference."""
+    import torch
+    from sdr_receiver_dvb_t2_tpu_torch.ops import bch_ops, ldpc
+    h = bch_ops._h_matrix(plp.k_bch, plp.bch_m, plp.bch_t)
+    dec = ldpc.LayeredDecoder(plp.ldpc_table_name, max_iters=max_iters,
+                              bch_h=h)
+    got = dec(llr)
+    sync()
+    want = ldpc.decode_plain(llr, plp.ldpc_table_name, max_iters, h,
+                             exit_tile=1)
+    sync()
+    names = ("hard", "ok", "iters", "clean")
+    diff = {n: int((g.to(torch.int32) - w.to(torch.int32)).abs().max())
+            for n, g, w in zip(names, got, want)}
+    res = dict(table=plp.ldpc_table_name, n_cw=int(llr.shape[0]),
+               max_abs_err=max(diff.values()), per_output=diff,
+               ok=int(got[1].sum()), clean=int(got[3].sum()),
+               iters_hist=torch.bincount(got[2].long().cpu()).tolist())
+    if any(diff.values()):
+        raise AssertionError(f"kernel differs from its twin: {res}")
+    return res, got
+
+
+# ---------------------------------------------------------------------------
+# phases
+# ---------------------------------------------------------------------------
+def phase_build(report):
+    import torch
+    from sdr_receiver_dvb_t2_tpu_torch.ops import _build
+    torch.backends.cuda.matmul.allow_tf32 = False    # fp32 products stay
+    torch.backends.cudnn.allow_tf32 = False          # full float32
+    name = torch.cuda.get_device_name(0)
+    smi = nvidia_smi_line()
+    t0 = time.perf_counter()
+    logs = _build.build_all()
+    build_s = time.perf_counter() - t0
+    report["device"] = dict(name=name, smi=smi,
+                            count=torch.cuda.device_count(),
+                            torch=torch.__version__, cuda=torch.version.cuda)
+    report["build"] = dict(seconds=build_s, ptxas=logs)
+    log(f"phase 1 device+build: {name} | {smi} | nvcc {build_s:.1f} s "
+        f"({len(logs)} sources built)")
+
+
+def phase_kernel_parity(report):
+    import torch
+    rows = []
+    for rate, frame, n_cw in (("C2_3", "NORMAL", 256), ("C2_3", "SHORT", 128),
+                              ("C1_2", "SHORT", 128)):
+        llr, plp = coded_llrs(rate, frame, n_cw, seed=len(rows) + 1)
+        res, _ = check_kernel_against_twin(
+            torch.from_numpy(llr).to(DEVICE), plp)
+        rows.append(res)
+    report["kernel_parity"] = rows
+    log("phase 2 kernel vs twin (bit-exact hard/ok/iters/clean): " + "; ".join(
+        f"{r['table']} W={r['n_cw']} ok={r['ok']} clean={r['clean']} "
+        f"iters={r['iters_hist']}" for r in rows))
+
+
+def flagship_config():
+    from sdr_receiver_dvb_t2_tpu_torch.params.modes import (
+        CodeRate, Constellation, FecFrame, FftMode, GuardInterval,
+        PilotPattern, PlpConfig, T2Mode)
+    mode = T2Mode(fft_mode=FftMode.FFT_32K, guard=GuardInterval.G1_128,
+                  pilot_pattern=PilotPattern.PP7, extended_carriers=True,
+                  n_data_symbols=59)
+    plp = PlpConfig(constellation=Constellation.QAM256, rotation=True,
+                    code_rate=CodeRate.C2_3, fec_frame=FecFrame.NORMAL,
+                    time_il_length=1, num_blocks_max=254)
+    return mode, plp
+
+
+def make_signal(mode, plp, n_frames=2, snr_db=27.0):
+    """Full frames from the port's transmitter plus seeded AWGN."""
+    import numpy as np
+    from sdr_receiver_dvb_t2_tpu_torch.models.transmitter import (
+        Transmitter, TxConfig, random_ts_stream)
+    from sdr_receiver_dvb_t2_tpu_torch.params import l1 as l1_mod
+    tmp = Transmitter(TxConfig(mode=mode, plp=plp, fec_blocks_per_frame=1,
+                               num_t2_frames=n_frames))
+    l1_cells = l1_mod.L1_PRE_CELLS + tmp.l1_pre.l1_post_size
+    n_fec = (mode.frame_cells - l1_cells) // plp.cells_per_fec_block
+    tx = Transmitter(TxConfig(mode=mode, plp=plp, fec_blocks_per_frame=n_fec,
+                              num_t2_frames=n_frames))
+    ts = random_ts_stream((n_frames + 1) * n_fec * (plp.k_bch // 8) // 188,
+                          seed=7)
+    iq = tx.modulate(ts)[:n_frames * mode.frame_samples]
+    iq = iq.reshape(n_frames, mode.frame_samples)
+    rng = np.random.default_rng(11)
+    npow = np.mean(np.abs(iq) ** 2) / 10 ** (snr_db / 10)
+    noise = (rng.standard_normal(iq.shape)
+             + 1j * rng.standard_normal(iq.shape)) * np.sqrt(npow / 2)
+    return (iq + noise).astype(np.complex64), n_fec, ts
+
+
+def phase_receive(report):
+    import numpy as np
+    import torch
+    from sdr_receiver_dvb_t2_tpu_torch.io.bbframe import BBFrameParser
+    from sdr_receiver_dvb_t2_tpu_torch.models.receiver import (
+        RxConfig, TorchReceiver)
+    from sdr_receiver_dvb_t2_tpu_torch.ops import bch_ops, ldpc, rx_chain
+
+    mode, plp = flagship_config()
+    t0 = time.perf_counter()
+    frames, n_fec, ts = make_signal(mode, plp)
+    tx_s = time.perf_counter() - t0
+    rx = TorchReceiver(RxConfig(mode=mode, plp=plp, n_fec_per_frame=n_fec,
+                                n_ti=1), device=DEVICE).prime(frames[0])
+    _ = rx.consts
+
+    # ---- the main path: counts from this run only ----
+    ldpc.LayeredDecoder.launches = 0
+    res = rx.receive(frames)
+    launches = ldpc.LayeredDecoder.launches
+    n_cw = 2 * n_fec
+    ts_ok = (len(res.ts_bytes) > 0
+             and np.array_equal(res.ts_bytes, ts[:len(res.ts_bytes)]))
+    finite = all(np.all(np.isfinite(v)) for v in res.diag.values())
+    rec = dict(n_cw=n_cw, n_fec=n_fec, ldpc_ok=int(res.ldpc_ok.sum()),
+               bch_clean=int(res.bch_clean.sum()),
+               ts_bytes=int(len(res.ts_bytes)), ts_exact=bool(ts_ok),
+               snr_db=res.snr_db, launches=launches, diag_finite=finite,
+               iters_hist=np.bincount(res.ldpc_iters).tolist(),
+               transmitter_s=tx_s)
+    report["receive"] = rec
+    log(f"phase 3 flagship receive (2 frames): ldpc_ok {rec['ldpc_ok']}/"
+        f"{n_cw} bch_clean {rec['bch_clean']}/{n_cw} ts_bytes "
+        f"{rec['ts_bytes']} exact={ts_ok} snr {res.snr_db:.2f} dB "
+        f"kernel launches {launches} iters {rec['iters_hist']}")
+    if not (rec["ldpc_ok"] == n_cw and rec["bch_clean"] == n_cw and ts_ok
+            and launches > 0 and finite and rec["ts_bytes"] > 1000):
+        raise AssertionError(f"flagship receive failed: {rec}")
+
+    # ---- timing: an 8-frame batch of 1616 codewords ----
+    batch = np.concatenate([frames] * 4)
+    dev_batch = torch.from_numpy(batch).to(DEVICE)
+    plan, consts = rx.plan, rx.consts
+    samples = batch.shape[0] * mode.frame_samples
+    eq, diag = rx_chain.frames_to_eq(dev_batch, plan, consts)
+    llr, _ = rx_chain.packed_to_llr(eq, plan, consts)
+    hard = rx.decoder(llr)[0]
+    stages = dict(
+        demod_eq_ms=cuda_ms(lambda: rx_chain.frames_to_eq(dev_batch, plan,
+                                                          consts)),
+        demap_ms=cuda_ms(lambda: rx_chain.packed_to_llr(eq, plan, consts)),
+        ldpc_bch_kernel_ms=cuda_ms(lambda: rx.decoder(llr)),
+        pack_ms=cuda_ms(lambda: bch_ops.pack_bits(hard[:, :plp.n_bch])),
+    )
+
+    def device_batch():
+        out, done = rx.receive_plane_async(*rx.compute_plane(dev_batch))
+        if done is not None:
+            done.synchronize()
+    device_batch()
+    reps = 5
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        device_batch()
+    dev_s = (time.perf_counter() - t0) / reps
+    # the host tail (Python BB de-encapsulation) takes seconds a batch:
+    # few repetitions of the end-to-end calls
+    host_reps = 2
+    t0 = time.perf_counter()
+    for _ in range(host_reps):
+        r8 = rx.receive_plane(*rx.compute_plane(dev_batch))
+    full_s = (time.perf_counter() - t0) / host_reps
+    # the host tail's share that the Python BB de-encapsulation takes
+    host, done = rx.receive_plane_async(*rx.compute_plane(dev_batch))
+    if done is not None:
+        done.synchronize()
+    bb_bytes = np.ascontiguousarray(host["packed"].numpy()[:, :plp.k_bch // 8])
+    t0 = time.perf_counter()
+    BBFrameParser().parse_batch(bb_bytes)
+    parse_s = time.perf_counter() - t0
+    n_stream = 3
+    sync()
+    t0 = time.perf_counter()
+    outs = list(rx.receive_stream([batch] * n_stream))
+    stream_s = (time.perf_counter() - t0) / n_stream
+    if not all(o.bch_clean.all() and o.ldpc_ok.all() for o in outs + [r8]):
+        raise AssertionError("8-frame batches did not decode clean")
+    timing = dict(
+        batch_frames=int(batch.shape[0]), batch_codewords=int(llr.shape[0]),
+        stages_ms=stages,
+        device_batch_ms=dev_s * 1e3, device_msps=samples / dev_s / 1e6,
+        receive_plane_ms=full_s * 1e3,
+        receive_plane_msps=samples / full_s / 1e6,
+        host_tail_ms=(full_s - dev_s) * 1e3, bb_parse_ms=parse_s * 1e3,
+        receive_stream_ms_per_batch=stream_s * 1e3,
+        receive_stream_msps=samples / stream_s / 1e6,
+        realtime_factor_stream=samples / stream_s / (64e6 / 7))
+    report["timing"] = timing
+    log(f"phase 3 timing ({report['device']['smi']}), 8 frames / "
+        f"{llr.shape[0]} codewords: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in stages.items())
+        + f"; device pipeline {dev_s * 1e3:.2f} ms = "
+        f"{timing['device_msps']:.1f} Msps; receive_plane "
+        f"{timing['receive_plane_msps']:.1f} Msps (host tail "
+        f"{timing['host_tail_ms']:.0f} ms, of it BB parse "
+        f"{timing['bb_parse_ms']:.0f} ms); receive_stream "
+        f"{timing['receive_stream_msps']:.1f} Msps")
+    return llr
+
+
+def phase_kernel_table(report, llr):
+    """The LDPC+BCH kernel at the main path's shape (1616 codewords of the
+    flagship batch): parity with its twin, its time, the twin's, the BCH
+    product's torch.matmul, and its bound from these inputs."""
+    import torch
+    from sdr_receiver_dvb_t2_tpu_torch.ops import bch_ops, ldpc
+    _, plp = flagship_config()
+    parity, got = check_kernel_against_twin(llr, plp)
+    h = bch_ops._h_matrix(plp.k_bch, plp.bch_m, plp.bch_t)
+    dec = ldpc.LayeredDecoder(plp.ldpc_table_name, bch_h=h)
+    ms = cuda_ms(lambda: dec(llr), reps=10)
+    plain_ms = cuda_ms(lambda: ldpc.decode_plain(
+        llr, plp.ldpc_table_name, 15, h, exit_tile=1), reps=1)
+    hard_f = got[0][:, :h.shape[0]].float()
+    h_t = torch.from_numpy(h).to(DEVICE)
+    library_ms = cuda_ms(lambda: torch.matmul(hard_f, h_t), reps=10)
+
+    plan = ldpc.get_plan(plp.ldpc_table_name)
+    w = llr.shape[0]
+    sweeps = int(got[2].sum())      # per-codeword exit: iters sweeps each
+    edges = plan.q * (plan.cnl + 2) * ldpc.M
+    n_syn = h.shape[1]
+    words = -(-plan.k // 32)
+    bytes_moved = (w * (plan.n + plan.k + 6)          # llr in, hard + stats out
+                   + n_syn * words * 4)               # packed H, read once
+    ops = OPS_PER_EDGE_SWEEP * edges * sweeps + w * n_syn * words * 2
+    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / SCALAR_OPS_PER_S * 1e3
+    row = dict(
+        name="ldpc_layered_bch", route="cuda",
+        source=f"{PKG}/ops/csrc/ldpc_layered.cu",
+        replaces="sdr_receiver_dvb_t2_tpu/ops/ldpc_pallas.py:169",
+        launches=report["receive"]["launches"],
+        max_abs_err=parity["max_abs_err"], ms=ms, plain_ms=plain_ms,
+        bound_ms=max(bytes_ms, ops_ms),
+        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+        library_ms=library_ms)
+    report["kernel_table"] = dict(row=row, parity_1616=parity,
+                                  sweeps=sweeps, bytes=bytes_moved, ops=ops,
+                                  bytes_ms=bytes_ms, ops_ms=ops_ms)
+    log(f"phase 4 kernel at W={w}: kernel {ms:.3f} ms, twin {plain_ms:.1f} "
+        f"ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}), BCH "
+        f"torch.matmul {library_ms:.3f} ms, {sweeps} sweeps, bit-exact")
+    return row
+
+
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description="Smoke run of the port on a GPU")
+    ap.add_argument("--report", type=Path, default=None,
+                    help="write every measurement as JSON to this file")
+    args = ap.parse_args(argv)
+    if not (ROOT / PKG / "__init__.py").is_file():
+        print(f"chip_smoke: {PKG}/ not found beside this script",
+              file=sys.stderr)
+        return 2
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    report = {}
+    phase_build(report)
+    phase_kernel_parity(report)
+    llr = phase_receive(report)
+    row = phase_kernel_table(report, llr)
+    if args.report is not None:
+        args.report.parent.mkdir(parents=True, exist_ok=True)
+        args.report.write_text(json.dumps(report, indent=1))
+    print(json.dumps({"kernels": [row]}), flush=True)
+    print(report["device"]["smi"], flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

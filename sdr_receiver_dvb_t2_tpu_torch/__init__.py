@@ -1,0 +1,35 @@
+"""PyTorch/CUDA port of the DVB-T2 frame-batch receiver.
+
+The package mirrors ``sdr_receiver_dvb_t2_tpu`` (``params/``, ``io/``,
+``ops/``, ``models/``) and runs its main path on an NVIDIA GPU: OFDM demod
+(cuFFT), SISO pilot equalization, the composed deinterleave + soft demap to
+int8 LLRs, and the layered min-sum LDPC decoder with its fused BCH syndrome
+screen as a hand-written CUDA kernel (``ops/csrc/ldpc_layered.cu``).
+
+Device rule: every entry point runs on ``cuda`` unless the caller passes
+``device="cpu"``.  Without a GPU and without an explicit ``cpu`` it raises;
+it never falls back to the CPU on its own.
+"""
+from __future__ import annotations
+
+import torch
+
+__all__ = ["resolve_device", "TorchReceiver", "RxConfig", "FrameBatchResult"]
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` -> cuda.  Raises when cuda is asked for and absent."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: pass device='cpu' to run the plain PyTorch path")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def __getattr__(name):
+    if name in ("TorchReceiver", "RxConfig", "FrameBatchResult"):
+        from .models import receiver
+        return getattr(receiver, name)
+    raise AttributeError(name)
