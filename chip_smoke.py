@@ -3,22 +3,28 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernel from ``sdr_receiver_dvb_t2_tpu_torch/ops/csrc``
+Builds the port's CUDA kernels from ``sdr_receiver_dvb_t2_tpu_torch/ops/csrc``
 with nvcc, then:
 
 1. prints the card (name, power limit) and the build time;
-2. holds the LDPC kernel bit-exact against its plain PyTorch twin
-   (``exit_tile=1``) on NORMAL_C2_3 (256 codewords), SHORT_C2_3 and
-   SHORT_C1_2, mixing noise-free, noisy and hopeless codewords;
+2. holds the LDPC kernel and its BCH screen bit-exact against their plain
+   PyTorch twin (``exit_tile=1``) on all 13 code tables (NORMAL_C2_3 with
+   256 codewords, the others 64), mixing noise-free, noisy and hopeless
+   codewords: the tables differ in the width of the kernel's state word
+   and in its unrolled slot count;
 3. receives two frames of the flagship mode (32K, GI 1/128, PP7 extended,
    rotated 256QAM, LDPC 64800 r2/3, 202 FEC blocks per frame) made by the
    port's transmitter with 27 dB AWGN, through ``TorchReceiver`` on the
    card: 404/404 LDPC ok and BCH clean, TS bytes equal to the transmitted
-   stream, and the kernel launched.  Then times an 8-frame batch (1616
-   codewords) stage by stage, ``receive_stream`` over a few batches, and
-   the kernel against its twin, its bound and the BCH product's
-   ``torch.matmul`` at that size;
-4. prints the kernel table as one JSON line, the card's nvidia-smi line,
+   stream, and both kernels launched.  Then times an 8-frame batch (1616
+   codewords) stage by stage, reads its peak device memory, and times
+   ``receive_stream`` over a few batches;
+4. at that size holds the kernels against the twin again and times them:
+   the whole call, the call without the screen (so the screen's own time),
+   the twin, the bounds and the BCH product's ``torch.matmul``; then the
+   same on a second load of 1616 codewords of which a quarter are hopeless
+   and run all 15 sweeps, so that unequal sweeps are on record;
+5. prints the kernel table as one JSON line, the card's nvidia-smi line,
    and last ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero.  Without a GPU, or without the port's
@@ -46,6 +52,12 @@ SCALAR_OPS_PER_S = 67e12
 # xor) and pass 2 (argmin compare, select, sign xor, negate, clip, add,
 # clip, store)
 OPS_PER_EDGE_SWEEP = 16
+
+
+ALL_TABLES = [("NORMAL", r) for r in ("C1_2", "C3_5", "C2_3", "C3_4", "C4_5",
+                                       "C5_6")] + [
+    ("SHORT", r) for r in ("C1_4", "C1_2", "C3_5", "C2_3", "C3_4", "C4_5",
+                           "C5_6")]
 
 
 def log(msg):
@@ -88,14 +100,21 @@ def cuda_ms(fn, reps=5, warmup=1):
 def coded_llrs(code_rate: str, fec_frame: str, n_cw: int, seed: int):
     """int8 channel LLRs [n_cw, N] in kernel bit order of random BCH+LDPC
     codewords: a quarter noise-free, a quarter hopeless (pure noise), the
-    rest at noise levels from easy to marginal.  Returns (llr, plp)."""
+    rest at noise levels from easy to marginal.  Returns (llr, plp); for
+    SHORT C1_4, the L1-pre code that no PLP uses, plp is a stand-in with
+    the table's name and BCH parameters."""
+    import types
     import numpy as np
     from sdr_receiver_dvb_t2_tpu_torch.ops.ldpc import kernel_bit_order
     from sdr_receiver_dvb_t2_tpu_torch.params import bch, ldpc as ldpc_par
     from sdr_receiver_dvb_t2_tpu_torch.params.modes import (
         CodeRate, FecFrame, PlpConfig)
-    plp = PlpConfig(code_rate=CodeRate[code_rate],
-                    fec_frame=FecFrame[fec_frame])
+    if (fec_frame, code_rate) == ("SHORT", "C1_4"):
+        plp = types.SimpleNamespace(ldpc_table_name="SHORT_C1_4", k_bch=3072,
+                                    bch_m=14, bch_t=12)
+    else:
+        plp = PlpConfig(code_rate=CodeRate[code_rate],
+                        fec_frame=FecFrame[fec_frame])
     code = ldpc_par.get_code(plp.ldpc_table_name)
     rng = np.random.default_rng(seed)
     payload = rng.integers(0, 2, (n_cw, plp.k_bch), dtype=np.uint8)
@@ -159,14 +178,15 @@ def phase_build(report):
 def phase_kernel_parity(report):
     import torch
     rows = []
-    for rate, frame, n_cw in (("C2_3", "NORMAL", 256), ("C2_3", "SHORT", 128),
-                              ("C1_2", "SHORT", 128)):
+    for frame, rate in ALL_TABLES:
+        n_cw = 256 if (frame, rate) == ("NORMAL", "C2_3") else 64
         llr, plp = coded_llrs(rate, frame, n_cw, seed=len(rows) + 1)
         res, _ = check_kernel_against_twin(
             torch.from_numpy(llr).to(DEVICE), plp)
         rows.append(res)
     report["kernel_parity"] = rows
-    log("phase 2 kernel vs twin (bit-exact hard/ok/iters/clean): " + "; ".join(
+    log(f"phase 2 kernel vs twin (bit-exact hard/ok/iters/clean) on "
+        f"{len(rows)} tables: " + "; ".join(
         f"{r['table']} W={r['n_cw']} ok={r['ok']} clean={r['clean']} "
         f"iters={r['iters_hist']}" for r in rows))
 
@@ -224,9 +244,10 @@ def phase_receive(report):
     _ = rx.consts
 
     # ---- the main path: counts from this run only ----
-    ldpc.LayeredDecoder.launches = 0
+    ldpc.LayeredDecoder.launches = ldpc.LayeredDecoder.screen_launches = 0
     res = rx.receive(frames)
     launches = ldpc.LayeredDecoder.launches
+    screen_launches = ldpc.LayeredDecoder.screen_launches
     n_cw = 2 * n_fec
     ts_ok = (len(res.ts_bytes) > 0
              and np.array_equal(res.ts_bytes, ts[:len(res.ts_bytes)]))
@@ -234,16 +255,19 @@ def phase_receive(report):
     rec = dict(n_cw=n_cw, n_fec=n_fec, ldpc_ok=int(res.ldpc_ok.sum()),
                bch_clean=int(res.bch_clean.sum()),
                ts_bytes=int(len(res.ts_bytes)), ts_exact=bool(ts_ok),
-               snr_db=res.snr_db, launches=launches, diag_finite=finite,
+               snr_db=res.snr_db, launches=launches,
+               screen_launches=screen_launches, diag_finite=finite,
                iters_hist=np.bincount(res.ldpc_iters).tolist(),
                transmitter_s=tx_s)
     report["receive"] = rec
     log(f"phase 3 flagship receive (2 frames): ldpc_ok {rec['ldpc_ok']}/"
         f"{n_cw} bch_clean {rec['bch_clean']}/{n_cw} ts_bytes "
         f"{rec['ts_bytes']} exact={ts_ok} snr {res.snr_db:.2f} dB "
-        f"kernel launches {launches} iters {rec['iters_hist']}")
+        f"kernel launches: decoder {launches}, screen {screen_launches}; "
+        f"iters {rec['iters_hist']}")
     if not (rec["ldpc_ok"] == n_cw and rec["bch_clean"] == n_cw and ts_ok
-            and launches > 0 and finite and rec["ts_bytes"] > 1000):
+            and launches > 0 and screen_launches > 0 and finite
+            and rec["ts_bytes"] > 1000):
         raise AssertionError(f"flagship receive failed: {rec}")
 
     # ---- timing: an 8-frame batch of 1616 codewords ----
@@ -267,6 +291,13 @@ def phase_receive(report):
         if done is not None:
             done.synchronize()
     device_batch()
+    # peak device memory of one batch, above what is resident between
+    # batches (the frames, the plan's tables)
+    sync()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    device_batch()
+    peak = torch.cuda.max_memory_allocated()
     reps = 5
     t0 = time.perf_counter()
     for _ in range(reps):
@@ -296,7 +327,8 @@ def phase_receive(report):
         raise AssertionError("8-frame batches did not decode clean")
     timing = dict(
         batch_frames=int(batch.shape[0]), batch_codewords=int(llr.shape[0]),
-        stages_ms=stages,
+        stages_ms=stages, peak_memory_bytes=int(peak),
+        resident_memory_bytes=int(resident),
         device_batch_ms=dev_s * 1e3, device_msps=samples / dev_s / 1e6,
         receive_plane_ms=full_s * 1e3,
         receive_plane_msps=samples / full_s / 1e6,
@@ -314,53 +346,113 @@ def phase_receive(report):
         f"{timing['host_tail_ms']:.0f} ms, of it BB parse "
         f"{timing['bb_parse_ms']:.0f} ms); receive_stream "
         f"{timing['receive_stream_msps']:.1f} Msps")
+    log(f"phase 3 peak device memory of one batch "
+        f"(torch.cuda.max_memory_allocated): {peak} B, of which {resident} B "
+        f"resident between batches")
     return llr
 
 
-def phase_kernel_table(report, llr):
-    """The LDPC+BCH kernel at the main path's shape (1616 codewords of the
-    flagship batch): parity with its twin, its time, the twin's, the BCH
-    product's torch.matmul, and its bound from these inputs."""
+def kernel_bounds(plan, w, sweeps, n_syn):
+    """Least times (ms) the card could take for the decoder with its screen
+    and for the screen alone, from this run's sizes and sweeps: each input
+    read once and each output written once at the HBM rate, against the
+    operations at the 32-bit rate."""
+    from sdr_receiver_dvb_t2_tpu_torch.ops import ldpc
+    edges = plan.q * (plan.cnl + 2) * ldpc.M
+    words = -(-plan.k // 32)
+    h_bytes = n_syn * words * 4                       # packed H, read once
+    screen_ops = 2 * w * n_syn * words                # and + popcount a word
+    whole = dict(bytes=w * (plan.n + plan.k + 6) + h_bytes,
+                 ops=OPS_PER_EDGE_SWEEP * edges * sweeps + screen_ops)
+    # the screen alone: packed hard bits and H in, one flag a codeword out
+    screen = dict(bytes=w * words * 4 + h_bytes + w, ops=screen_ops)
+    for b in (whole, screen):
+        b["bytes_ms"] = b["bytes"] / HBM_BYTES_PER_S * 1e3
+        b["ops_ms"] = b["ops"] / SCALAR_OPS_PER_S * 1e3
+        b["bound_ms"] = max(b["bytes_ms"], b["ops_ms"])
+        b["bound_by"] = ("bytes" if b["bytes_ms"] >= b["ops_ms"]
+                         else "operations")
+    return whole, screen
+
+
+def time_kernels(llr, plp, label):
+    """Parity with the twin, then the times of one load [W, N]: the whole
+    call, the call without the screen, the twin, the screen's plain version
+    and its library product."""
     import torch
     from sdr_receiver_dvb_t2_tpu_torch.ops import bch_ops, ldpc
-    _, plp = flagship_config()
     parity, got = check_kernel_against_twin(llr, plp)
     h = bch_ops._h_matrix(plp.k_bch, plp.bch_m, plp.bch_t)
-    dec = ldpc.LayeredDecoder(plp.ldpc_table_name, bch_h=h)
-    ms = cuda_ms(lambda: dec(llr), reps=10)
-    plain_ms = cuda_ms(lambda: ldpc.decode_plain(
-        llr, plp.ldpc_table_name, 15, h, exit_tile=1), reps=1)
-    hard_f = got[0][:, :h.shape[0]].float()
+    name = plp.ldpc_table_name
+    dec = ldpc.LayeredDecoder(name, bch_h=h)
+    dec_bare = ldpc.LayeredDecoder(name, bch_h=None)
+    # in turns, so that both see the same card state
+    ms_a, bare_a = cuda_ms(lambda: dec(llr), reps=10), cuda_ms(
+        lambda: dec_bare(llr), reps=10)
+    bare_b, ms_b = cuda_ms(lambda: dec_bare(llr), reps=10), cuda_ms(
+        lambda: dec(llr), reps=10)
+    ms, bare_ms = (ms_a + ms_b) / 2, (bare_a + bare_b) / 2
+    plain_ms = cuda_ms(lambda: ldpc.decode_plain(llr, name, 15, h,
+                                                 exit_tile=1), reps=1)
+    hard = got[0]
+    screen_plain_ms = cuda_ms(lambda: bch_ops.syndrome_flags(hard, h), reps=3)
+    hard_f = hard[:, :h.shape[0]].float()
     h_t = torch.from_numpy(h).to(DEVICE)
     library_ms = cuda_ms(lambda: torch.matmul(hard_f, h_t), reps=10)
+    clean_err = int((got[3].int() - bch_ops.syndrome_flags(hard, h).int())
+                    .abs().max())
+    w, sweeps = int(llr.shape[0]), int(got[2].sum())   # iters sweeps each
+    whole, screen = kernel_bounds(ldpc.get_plan(name), w, sweeps, h.shape[1])
+    res = dict(label=label, parity=parity, n_cw=w, sweeps=sweeps, ms=ms,
+               ms_runs=[ms_a, ms_b], without_screen_ms=bare_ms,
+               without_screen_runs=[bare_a, bare_b], screen_ms=ms - bare_ms,
+               plain_ms=plain_ms, screen_plain_ms=screen_plain_ms,
+               library_ms=library_ms, screen_max_abs_err=clean_err,
+               bound=whole, screen_bound=screen)
+    log(f"phase 4 {label}, W={w}, {sweeps} sweeps, bit-exact: call {ms:.3f} "
+        f"ms (bound {whole['bound_ms']:.4f} ms by {whole['bound_by']}), "
+        f"without the screen {bare_ms:.3f} ms, so the screen "
+        f"{ms - bare_ms:.3f} ms (bound {screen['bound_ms']:.4f} ms by "
+        f"{screen['bound_by']}; torch.matmul {library_ms:.3f} ms; plain "
+        f"{screen_plain_ms:.2f} ms); twin {plain_ms:.1f} ms")
+    return res
 
-    plan = ldpc.get_plan(plp.ldpc_table_name)
-    w = llr.shape[0]
-    sweeps = int(got[2].sum())      # per-codeword exit: iters sweeps each
-    edges = plan.q * (plan.cnl + 2) * ldpc.M
-    n_syn = h.shape[1]
-    words = -(-plan.k // 32)
-    bytes_moved = (w * (plan.n + plan.k + 6)          # llr in, hard + stats out
-                   + n_syn * words * 4)               # packed H, read once
-    ops = OPS_PER_EDGE_SWEEP * edges * sweeps + w * n_syn * words * 2
-    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / SCALAR_OPS_PER_S * 1e3
-    row = dict(
-        name="ldpc_layered_bch", route="cuda",
-        source=f"{PKG}/ops/csrc/ldpc_layered.cu",
-        replaces="sdr_receiver_dvb_t2_tpu/ops/ldpc_pallas.py:169",
-        launches=report["receive"]["launches"],
-        max_abs_err=parity["max_abs_err"], ms=ms, plain_ms=plain_ms,
-        bound_ms=max(bytes_ms, ops_ms),
-        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-        library_ms=library_ms)
-    report["kernel_table"] = dict(row=row, parity_1616=parity,
-                                  sweeps=sweeps, bytes=bytes_moved, ops=ops,
-                                  bytes_ms=bytes_ms, ops_ms=ops_ms)
-    log(f"phase 4 kernel at W={w}: kernel {ms:.3f} ms, twin {plain_ms:.1f} "
-        f"ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}), BCH "
-        f"torch.matmul {library_ms:.3f} ms, {sweeps} sweeps, bit-exact")
-    return row
+
+def phase_kernel_table(report, llr):
+    """The decoder kernel and the screen kernel at the main path's shape
+    (the 1616 codewords of the flagship batch) and on a second load of as
+    many codewords with unequal sweeps.  Returns the kernel table's rows,
+    taken from the main path's load."""
+    import numpy as np
+    import torch
+    _, plp = flagship_config()
+    main = time_kernels(llr, plp, "flagship batch")
+    mixed_llr, _ = coded_llrs("C2_3", "NORMAL", 404, seed=21)
+    mixed = time_kernels(
+        torch.from_numpy(np.tile(mixed_llr, (4, 1))).to(DEVICE), plp,
+        "mixed load (a quarter hopeless)")
+    source = f"{PKG}/ops/csrc/ldpc_layered.cu"
+    rows = [
+        dict(name="ldpc_layered_bch", route="cuda", source=source,
+             replaces="sdr_receiver_dvb_t2_tpu/ops/ldpc_pallas.py:169",
+             launches=report["receive"]["launches"],
+             max_abs_err=main["parity"]["max_abs_err"], ms=main["ms"],
+             plain_ms=main["plain_ms"], bound_ms=main["bound"]["bound_ms"],
+             bound_by=main["bound"]["bound_by"], library_ms=None,
+             note="decoder kernel and screen kernel, one call; ms is both"),
+        dict(name="bch_screen", route="cuda", source=source,
+             replaces="sdr_receiver_dvb_t2_tpu/ops/ldpc_pallas.py:369",
+             launches=report["receive"]["screen_launches"],
+             max_abs_err=main["screen_max_abs_err"], ms=main["screen_ms"],
+             plain_ms=main["screen_plain_ms"],
+             bound_ms=main["screen_bound"]["bound_ms"],
+             bound_by=main["screen_bound"]["bound_by"],
+             library_ms=main["library_ms"],
+             note="second kernel of the same call; ms is the call's time "
+                  "less its time without the screen"),
+    ]
+    report["kernel_table"] = dict(rows=rows, flagship=main, mixed=mixed)
+    return rows
 
 
 def main(argv=None) -> int:
@@ -382,11 +474,11 @@ def main(argv=None) -> int:
     phase_build(report)
     phase_kernel_parity(report)
     llr = phase_receive(report)
-    row = phase_kernel_table(report, llr)
+    rows = phase_kernel_table(report, llr)
     if args.report is not None:
         args.report.parent.mkdir(parents=True, exist_ok=True)
         args.report.write_text(json.dumps(report, indent=1))
-    print(json.dumps({"kernels": [row]}), flush=True)
+    print(json.dumps({"kernels": rows}), flush=True)
     print(report["device"]["smi"], flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

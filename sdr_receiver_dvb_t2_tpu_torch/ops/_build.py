@@ -26,8 +26,10 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # C signatures of the kernels' host entry points
 _SIGNATURES = {
     "ldpc_layered": {
-        "ldpc_layered_decode": ([_P] * 10 + [_I] * 9 + [_P], _I),
+        "ldpc_layered_decode": ([_P] * 9 + [_I] * 8 + [_P], _I),
+        "ldpc_layered_shared_bytes": ([_I] * 4, _I),
         "last_error_string": ([_I], ctypes.c_char_p),
+        "last_error_detail": ([], ctypes.c_char_p),
     },
 }
 

@@ -20,21 +20,53 @@ def cuda():
     return torch.device("cuda")
 
 
+# beside the flagship's table: the 64-bit state word (NORMAL and SHORT
+# r5/6) and the largest state (NORMAL r1/2)
 @pytest.mark.parametrize("rate,frame,n_cw", [("C1_2", "SHORT", 64),
                                              ("C2_3", "SHORT", 64),
-                                             ("C2_3", "NORMAL", 48)])
+                                             ("C2_3", "NORMAL", 48),
+                                             ("C5_6", "NORMAL", 32),
+                                             ("C5_6", "SHORT", 64),
+                                             ("C1_2", "NORMAL", 32)])
 def test_kernel_matches_twin(cuda, rate, frame, n_cw):
     from chip_smoke import check_kernel_against_twin, coded_llrs
     from sdr_receiver_dvb_t2_tpu_torch.ops import ldpc
     llr, plp = coded_llrs(rate, frame, n_cw, seed=9)
     before = ldpc.LayeredDecoder.launches
+    screens = ldpc.LayeredDecoder.screen_launches
     res, got = check_kernel_against_twin(torch.from_numpy(llr).to(cuda), plp)
     assert ldpc.LayeredDecoder.launches == before + 1
+    assert ldpc.LayeredDecoder.screen_launches == screens + 1
     assert res["max_abs_err"] == 0
     assert got[0].device.type == "cuda"
     # the noise-free quarter decodes in one sweep, the hopeless quarter not
     assert got[1][0::4].all() and (got[2][0::4] == 1).all()
     assert not got[3][1::4].any()
+
+
+def test_shared_memory_is_sized_alike_in_c_and_python(cuda):
+    from sdr_receiver_dvb_t2_tpu_torch.ops import _build, ldpc
+    lib = _build.load_kernel("ldpc_layered")
+    for table in ("NORMAL_C1_2", "NORMAL_C2_3", "NORMAL_C5_6", "SHORT_C1_4",
+                  "SHORT_C3_4", "SHORT_C5_6"):
+        dec = ldpc.LayeredDecoder(table)
+        plan = dec.plan
+        assert lib.ldpc_layered_shared_bytes(
+            plan.k, plan.q, plan.cnl, int(dec.uniform)) == dec.shared_bytes
+
+
+def test_kernel_refuses_a_table_it_has_no_room_for(cuda):
+    """A code whose posteriors and state exceed a block's shared memory is
+    refused with its sizes named, before any launch."""
+    import ctypes
+    from sdr_receiver_dvb_t2_tpu_torch.ops import _build
+    lib = _build.load_kernel("ldpc_layered")
+    null = ctypes.c_void_p(0)
+    err = lib.ldpc_layered_decode(null, null, null, null, null, null, null,
+                                  null, null, 0, 0, 1, 360 * 600, 90, 5, 1,
+                                  15, null)
+    assert err != 0
+    assert b"shared memory" in lib.last_error_detail()
 
 
 def test_receiver_cuda_equals_cpu(cuda):
