@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``sdr_receiver_dvb_t2_tpu_torch/ops/csrc``
-with nvcc, then:
+with nvcc and its native host runtime (``native/dvbt2_runtime.cc``) with
+g++, all at once, then:
 
 1. prints the card (name, power limit) and the build time;
 2. holds the LDPC kernel and its BCH screen bit-exact against their plain
@@ -19,13 +20,33 @@ with nvcc, then:
    stream, and both kernels launched.  Then times an 8-frame batch (1616
    codewords) stage by stage, reads its peak device memory, and times
    ``receive_stream`` over a few batches;
-4. at that size holds the kernels against the twin again and times them:
-   the whole call, the call without the screen (so the screen's own time),
-   the twin, the bounds and the BCH product's ``torch.matmul``; then the
-   same on a second load of 1616 codewords of which a quarter are hopeless
-   and run all 15 sweeps, so that unequal sweeps are on record;
-5. prints the kernel table as one JSON line, the card's nvidia-smi line,
-   and last ``{"ok": true, "device": {...}}``.
+   It also times the native BB parser against the Python one on the
+   batch's 1616 BB frames;
+4. streams a raw SDR capture through the port's entry point
+   (``StreamingReceiver.run`` on a ``RawFileSource``): the two frames of
+   phase 3 tiled to sixteen (a consistent superframe, FRAME_IDX 0, 1, 0,
+   ...), impaired by the port's channel as the JAX package's stream test
+   impairs its capture (10 Msps, CFO +31 kHz, SRO +19 ppm, DC and IQ
+   imbalance) and quantised to u8.  The receiver runs its front end and
+   P1 search on the card, acquires the mode blind, tracks, and decodes
+   batches of two frames.  Checks: locked on the flagship mode, every
+   frame decoded, the SRO pull-in (the leading batches with failed
+   codewords) at most four batches and no failed codeword after it, no
+   TS packet that was not transmitted and, after the pull-in, every
+   transmitted superframe's TS whole, CFO within 500 Hz, one decoder
+   launch a batch.  Holds one front-end block and the P1 search on the
+   card against the CPU, and times acquisition, the front end, the P1
+   search, each batch, and the raw input read over the whole run, after
+   lock and after the pull-in;
+5. at the flagship batch's size holds the kernels against the twin again
+   and times them: the whole call, the call without the screen (so the
+   screen's own time), the twin, the bounds and the BCH product's
+   ``torch.matmul``; then the same on a second load of 1616 codewords of
+   which a quarter are hopeless and run all 15 sweeps, so that unequal
+   sweeps are on record;
+6. prints the kernel table as one JSON line (launches counted on the
+   streaming path, and per path), the card's nvidia-smi line, and last
+   ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero.  Without a GPU, or without the port's
 package beside it, it exits non-zero before printing any result.
@@ -52,7 +73,18 @@ SCALAR_OPS_PER_S = 67e12
 # xor) and pass 2 (argmin compare, select, sign xor, negate, clip, add,
 # clip, store)
 OPS_PER_EDGE_SWEEP = 16
-
+# the streamed capture (phase 4): the impairments of the JAX package's own
+# stream test (tests/test_stream_e2e.py) at 10 Msps, u8 at scale 0.4, and
+# its sampling-clock error of +19 ppm.  At 32K that error costs the first
+# batches while the SRO loop pulls in (any receiver that samples the FFT
+# window at the wrong rate: tools/sro_drift_witness.py), so the capture
+# holds STREAM_FRAMES frames and the phase allows up to STREAM_PULL_IN_MAX
+# leading batches with failed codewords (PERF.md section 6)
+STREAM_RATE = 10_000_000
+STREAM_SRO_PPM = 19.0
+STREAM_FRAMES = 16
+STREAM_PULL_IN_MAX = 4
+STREAM_SCALE = 0.4
 
 ALL_TABLES = [("NORMAL", r) for r in ("C1_2", "C3_5", "C2_3", "C3_4", "C4_5",
                                        "C5_6")] + [
@@ -164,15 +196,20 @@ def phase_build(report):
     torch.backends.cudnn.allow_tf32 = False          # full float32
     name = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
+    from concurrent.futures import ThreadPoolExecutor
+    from sdr_receiver_dvb_t2_tpu_torch.io import native
     t0 = time.perf_counter()
-    logs = _build.build_all()
+    with ThreadPoolExecutor(1) as pool:
+        host_lib = pool.submit(native.build)     # g++ beside the nvcc runs
+        logs = _build.build_all()
+        host_lib = str(host_lib.result())
     build_s = time.perf_counter() - t0
     report["device"] = dict(name=name, smi=smi,
                             count=torch.cuda.device_count(),
                             torch=torch.__version__, cuda=torch.version.cuda)
-    report["build"] = dict(seconds=build_s, ptxas=logs)
-    log(f"phase 1 device+build: {name} | {smi} | nvcc {build_s:.1f} s "
-        f"({len(logs)} sources built)")
+    report["build"] = dict(seconds=build_s, ptxas=logs, host_lib=host_lib)
+    log(f"phase 1 device+build: {name} | {smi} | nvcc and g++ "
+        f"{build_s:.1f} s ({len(logs)} CUDA sources built; {host_lib})")
 
 
 def phase_kernel_parity(report):
@@ -231,6 +268,7 @@ def phase_receive(report):
     import numpy as np
     import torch
     from sdr_receiver_dvb_t2_tpu_torch.io.bbframe import BBFrameParser
+    from sdr_receiver_dvb_t2_tpu_torch.io.native import NativeBBFrameParser
     from sdr_receiver_dvb_t2_tpu_torch.models.receiver import (
         RxConfig, TorchReceiver)
     from sdr_receiver_dvb_t2_tpu_torch.ops import bch_ops, ldpc, rx_chain
@@ -310,14 +348,22 @@ def phase_receive(report):
     for _ in range(host_reps):
         r8 = rx.receive_plane(*rx.compute_plane(dev_batch))
     full_s = (time.perf_counter() - t0) / host_reps
-    # the host tail's share that the Python BB de-encapsulation takes
+    # BB de-encapsulation of the batch's 1616 BB frames: the native parser
+    # (the receiver's) against its plain reference, the Python parser
     host, done = rx.receive_plane_async(*rx.compute_plane(dev_batch))
     if done is not None:
         done.synchronize()
     bb_bytes = np.ascontiguousarray(host["packed"].numpy()[:, :plp.k_bch // 8])
+    native_s = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        ts_native = NativeBBFrameParser().parse_batch(bb_bytes)
+        native_s.append(time.perf_counter() - t0)
     t0 = time.perf_counter()
-    BBFrameParser().parse_batch(bb_bytes)
+    ts_python = BBFrameParser().parse_batch(bb_bytes)
     parse_s = time.perf_counter() - t0
+    if not (np.array_equal(ts_native, ts_python) and len(ts_native) > 0):
+        raise AssertionError("native and Python BB parsers differ")
     n_stream = 3
     sync()
     t0 = time.perf_counter()
@@ -333,6 +379,9 @@ def phase_receive(report):
         receive_plane_ms=full_s * 1e3,
         receive_plane_msps=samples / full_s / 1e6,
         host_tail_ms=(full_s - dev_s) * 1e3, bb_parse_ms=parse_s * 1e3,
+        bb_parse_native_ms=min(native_s) * 1e3,
+        bb_parse_native_runs_ms=[t * 1e3 for t in native_s],
+        bb_frames=int(bb_bytes.shape[0]), ts_bytes_batch=int(len(ts_native)),
         receive_stream_ms_per_batch=stream_s * 1e3,
         receive_stream_msps=samples / stream_s / 1e6,
         realtime_factor_stream=samples / stream_s / (64e6 / 7))
@@ -343,13 +392,312 @@ def phase_receive(report):
         + f"; device pipeline {dev_s * 1e3:.2f} ms = "
         f"{timing['device_msps']:.1f} Msps; receive_plane "
         f"{timing['receive_plane_msps']:.1f} Msps (host tail "
-        f"{timing['host_tail_ms']:.0f} ms, of it BB parse "
-        f"{timing['bb_parse_ms']:.0f} ms); receive_stream "
-        f"{timing['receive_stream_msps']:.1f} Msps")
+        f"{timing['host_tail_ms']:.1f} ms); receive_stream "
+        f"{timing['receive_stream_msps']:.1f} Msps = "
+        f"{timing['realtime_factor_stream']:.2f}x real time")
+    log(f"phase 3 BB de-encapsulation of {bb_bytes.shape[0]} BB frames "
+        f"({len(ts_native)} TS bytes, equal): native "
+        f"{timing['bb_parse_native_ms']:.2f} ms (runs "
+        f"{', '.join(f'{t * 1e3:.2f}' for t in native_s)}), Python "
+        f"{timing['bb_parse_ms']:.0f} ms ({report['device']['smi']})")
     log(f"phase 3 peak device memory of one batch "
         f"(torch.cuda.max_memory_allocated): {peak} B, of which {resident} B "
         f"resident between batches")
-    return llr
+    return dict(llr=llr, frames=frames, ts=ts, ts_superframe=res.ts_bytes)
+
+
+class _CountingSource:
+    """A source that counts the raw samples it hands out and notes when it
+    handed out the first."""
+
+    def __init__(self, src):
+        self.src, self.info, self.samples = src, src.info, 0
+        self.t_first = None
+
+    def read(self, n_samples):
+        if self.t_first is None:
+            self.t_first = time.perf_counter()
+        blk = self.src.read(n_samples)
+        if blk is not None:
+            self.samples += len(blk) // 2
+        return blk
+
+    def close(self):
+        self.src.close()
+
+
+def _ts_runs(got, ts):
+    """Split the received TS into runs of consecutive transmitted packets.
+    Returns (run lengths in packets, packets not in the transmitted TS)."""
+    import numpy as np
+    index = {bytes(p): i for i, p in enumerate(ts.reshape(-1, 188))}
+    runs, prev, missing = [], None, 0
+    for p in got.reshape(-1, 188):
+        i = index.get(bytes(p))
+        if i is None:
+            missing += 1
+            prev = None
+            continue
+        if prev is not None and i == prev + 1:
+            runs[-1] += 1
+        else:
+            runs.append(1)
+        prev = i
+    return runs, missing
+
+
+def stream_channel(sro_ppm=STREAM_SRO_PPM, rate=STREAM_RATE):
+    """The channel of the streamed capture, as tests/test_stream_e2e.py
+    impairs its capture: CFO +31 kHz, DC and IQ imbalance, at ``sro_ppm``;
+    no further noise."""
+    from sdr_receiver_dvb_t2_tpu_torch.models.channel import ChannelConfig
+    return ChannelConfig(device_rate=rate, cfo_hz=31e3, sro_ppm=sro_ppm,
+                         phase0=1.1, dc_offset=0.02 - 0.01j, iq_gain_db=0.2,
+                         iq_phase_deg=1.0, seed=3)
+
+
+def stream_capture(frames, path, n_tile=STREAM_FRAMES,
+                   sro_ppm=STREAM_SRO_PPM, rate=STREAM_RATE):
+    """A raw u8 capture of ``frames`` (a superframe, FRAME_IDX 0, 1, ...)
+    tiled to ``n_tile`` frames, through ``stream_channel`` and quantised to
+    u8 at STREAM_SCALE, written to ``path``.  Zeros follow the last frame up
+    to a multiple of an eighth of the next power of two, so that the
+    channel's FFT resampler runs on a length with small factors.  Returns
+    the impaired samples before quantisation."""
+    import numpy as np
+    from sdr_receiver_dvb_t2_tpu_torch.models.channel import impair, quantize
+    iq = np.tile(frames.reshape(-1), n_tile // len(frames))
+    pad = -len(iq) % (1 << max(len(iq).bit_length() - 3, 0))
+    iq = np.concatenate([iq, np.zeros(pad, np.complex64)])
+    dev = impair(iq, stream_channel(sro_ppm, rate))
+    quantize(dev, "u8", scale=STREAM_SCALE).tofile(path)
+    return dev
+
+
+def run_stream(path, device=None):
+    """``StreamingReceiver.run`` on a ``RawFileSource`` of ``path`` (the
+    user's entry point), with acquisition and every batch timed on the
+    host clock after a device synchronise.  Returns (receiver, stats, TS
+    bytes, timing: acquisitions, lock time and raw samples read at the
+    first lock, per-batch records with the raw samples read and the TS
+    bytes written, first read and end times)."""
+    from sdr_receiver_dvb_t2_tpu_torch.io import sinks, sources
+    from sdr_receiver_dvb_t2_tpu_torch.runtime import stream
+    src = _CountingSource(sources.RawFileSource(str(path)))
+    sink = sinks.BufferTsSink()
+    rx = stream.StreamingReceiver(src, sink, stream.StreamConfig(),
+                                  device=device or DEVICE)
+    timing = dict(acquire_s=[], batches=[])
+    acquire, step_batch = rx.acquire, rx.step_batch
+
+    def timed_acquire():
+        t = time.perf_counter()
+        ok = acquire()
+        sync()
+        timing["acquire_s"].append(time.perf_counter() - t)
+        if ok and "lock_t" not in timing:
+            timing["lock_t"] = time.perf_counter()
+            timing["lock_raw"] = src.samples
+        return ok
+
+    def timed_step():
+        st = rx.stats
+        before = (st.frames, st.ldpc_failures, st.bch_dirty, st.bch_corrected)
+        raw0, n_chunks = src.samples, len(sink.chunks)
+        t = time.perf_counter()
+        ok = step_batch()
+        sync()
+        if ok:
+            timing["batches"].append(dict(
+                t0=t, ms=(time.perf_counter() - t) * 1e3,
+                raw_start=raw0, raw_end=src.samples,
+                frames=st.frames - before[0],
+                ldpc_failures=st.ldpc_failures - before[1],
+                bch_dirty=st.bch_dirty - before[2],
+                bch_bits_corrected=st.bch_corrected - before[3],
+                ts_bytes=sum(len(c) for c in sink.chunks[n_chunks:]),
+                snr_db=st.snr_db, sro_ppm=float(st.sro_ppm),
+                cfo_hz=st.cfo_hz))
+        return ok
+    rx.acquire, rx.step_batch = timed_acquire, timed_step
+    stats = rx.run()
+    sync()
+    timing["end_t"] = time.perf_counter()
+    src.close()
+    timing["raw_read"] = src.samples
+    timing["first_read_t"] = src.t_first
+    return rx, stats, sink.data, timing
+
+
+def phase_stream(report, sig):
+    """Phase 4: the streaming entry point on a raw u8 capture of the
+    flagship mode at STREAM_SRO_PPM."""
+    import numpy as np
+    import torch
+    from sdr_receiver_dvb_t2_tpu_torch.ops import frontend as fe
+    from sdr_receiver_dvb_t2_tpu_torch.ops import ldpc, p1_detect
+    smi = report["device"]["smi"]
+    mode, plp = flagship_config()
+    rate = STREAM_RATE
+    out_dir = ROOT / "build" / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    path = out_dir / f"flagship_stream_0_{rate}_8.raw"
+    t0 = time.perf_counter()
+    raw_samples = len(stream_capture(sig["frames"], path))
+    capture_s = time.perf_counter() - t0
+
+    # ---- the main path: counts from this run only
+    ldpc.LayeredDecoder.launches = ldpc.LayeredDecoder.screen_launches = 0
+    rx, stats, got, timing = run_stream(path)
+    launches = ldpc.LayeredDecoder.launches
+    screen_launches = ldpc.LayeredDecoder.screen_launches
+    if "lock_t" not in timing:
+        raise AssertionError(f"stream never acquired: {stats}")
+    cfg = rx.cfg
+    batches = timing["batches"]
+    n_batches = len(batches)
+    # the pull-in: the leading batches with failed codewords
+    failed = [i for i, b in enumerate(batches) if b["ldpc_failures"]]
+    n_pull = failed[-1] + 1 if failed else 0
+    clean = batches[n_pull:]
+    frames_clean = sum(b["frames"] for b in clean)
+    # every pair of frames carries phase 3's superframe (FRAME_IDX 0, 1):
+    # after the pull-in the TS is that superframe's packets, whole, once a
+    # pair of frames
+    pps = len(sig["ts_superframe"]) // 188
+    runs, missing = _ts_runs(got, sig["ts"])
+    after = got[sum(b["ts_bytes"] for b in batches[:n_pull]):]
+    runs_after, missing_after = _ts_runs(after, sig["ts"])
+    superframes_after = frames_clean // 2
+
+    def rate_over(t_start, raw_start):
+        """Raw input read from ``t_start`` to the end over that time."""
+        secs = timing["end_t"] - t_start
+        n = timing["raw_read"] - raw_start
+        return dict(seconds=secs, raw_samples=int(n), msps=n / secs / 1e6,
+                    realtime_factor=n / rate / secs)
+    windows = dict(
+        whole_run=rate_over(timing["first_read_t"], 0),
+        after_lock=rate_over(timing["lock_t"], timing["lock_raw"]),
+        after_pull_in=(rate_over(clean[0]["t0"], clean[0]["raw_start"])
+                       if clean else None))
+    batch_s = [b["ms"] / 1e3 for b in batches]
+    acquire_s = timing["acquire_s"][0]
+    m, p = rx.mode, rx.rx.plp if rx.rx is not None else None
+    mode_ok = (m is not None and p is not None
+               and (m.fft_mode, m.guard, m.pilot_pattern,
+                    m.extended_carriers) == (mode.fft_mode, mode.guard,
+                                             mode.pilot_pattern,
+                                             mode.extended_carriers)
+               and (p.constellation, p.code_rate, p.fec_frame, p.rotation)
+               == (plp.constellation, plp.code_rate, plp.fec_frame,
+                   plp.rotation))
+    rec = dict(
+        capture_frames=STREAM_FRAMES, raw_samples=int(raw_samples),
+        capture_s=capture_s, state=stats.state,
+        mode=None if m is None else f"{m.fft_size // 1024}K {m.guard.name} "
+        f"{m.pilot_pattern.name}{' ext' if m.extended_carriers else ''}",
+        plp=None if p is None else f"{p.constellation.name} "
+        f"{p.code_rate.name} {p.fec_frame.name}",
+        frames=stats.frames, batches=n_batches, pull_in_batches=n_pull,
+        ldpc_failures=stats.ldpc_failures, bch_dirty=stats.bch_dirty,
+        bch_bits_corrected=stats.bch_corrected,
+        ldpc_failures_after_pull_in=sum(b["ldpc_failures"] for b in clean),
+        bch_dirty_after_pull_in=sum(b["bch_dirty"] for b in clean),
+        snr_db=stats.snr_db, cfo_hz=stats.cfo_hz,
+        sro_ppm=float(stats.sro_ppm), ts_bytes=int(len(got)),
+        ts_packets_per_superframe=pps, ts_runs=runs, ts_missing=missing,
+        ts_runs_after_pull_in=runs_after,
+        launches=launches, screen_launches=screen_launches,
+        sro_ppm_channel=STREAM_SRO_PPM, acquire_s=acquire_s,
+        acquisitions_s=timing["acquire_s"], batches_detail=batches,
+        batch_s=batch_s, rates=windows)
+
+    # ---- the front end and the P1 search on the card, against the CPU:
+    # one block as _pump gives it (u8 to the device, converted there)
+    n_in = rx.n_in
+    raw = torch.from_numpy(np.fromfile(path, np.uint8, count=2 * n_in))
+    hi, lo = fe.split_step(rx.step)
+    hb = torch.from_numpy(np.asarray(fe.halfband_taps(), np.float32))
+    fir = torch.from_numpy(fe.fir_taps(cfg.fir_preset))
+
+    def block(device):
+        z = lambda n: torch.zeros(n, dtype=torch.complex64,       # noqa
+                                  device=device)
+        return fe.frontend_block(
+            fe.raw_to_iq(raw.to(device), "u8"), np.float32(0.0),
+            np.float32(1.0), np.float32(0.0), np.float32(rx.freq),
+            np.float32(1.0), hi, lo, z(len(fir) - 1), z(len(hb) - 1),
+            z(len(hb) - 1), fir.to(device), hb.to(device), rx.n_up)
+    on_card, on_cpu = block(DEVICE)[0].cpu().numpy(), block("cpu")[0].numpy()
+    fe_err = float(np.max(np.abs(on_card - on_cpu))
+                   / np.sqrt(np.mean(np.abs(on_cpu) ** 2)))
+    fe_ms = cuda_ms(lambda: block(DEVICE), reps=10)
+    window = torch.from_numpy(np.ascontiguousarray(
+        sig["frames"].reshape(-1)[:cfg.acq_elem_samples]))
+    win_dev = window.to(DEVICE)
+    card_p1 = [float(v) for v in p1_detect.detect(win_dev)]
+    cpu_p1 = [float(v) for v in p1_detect.detect(window)]
+    p1_ms = cuda_ms(lambda: p1_detect.detect(win_dev), reps=10)
+    rec.update(frontend_block=dict(n_in=int(n_in), n_out=rx.n_up // 2,
+                                   ms=fe_ms, max_rel_err_vs_cpu=fe_err),
+               p1_detect=dict(window=int(window.shape[0]), ms=p1_ms,
+                              card=card_p1, cpu=cpu_p1))
+    report["stream"] = rec
+    log(f"phase 4 stream ({smi}): {STREAM_FRAMES}-frame u8 capture at "
+        f"{rate / 1e6:g} Msps, SRO {STREAM_SRO_PPM:+g} ppm "
+        f"({raw_samples} samples, made in {capture_s:.1f} s): {rec['state']} "
+        f"on {rec['mode']} {rec['plp']}; {stats.frames} frames in "
+        f"{n_batches} batches, of them {n_pull} pull-in batches; LDPC "
+        f"failures / BCH-dirty codewords a batch "
+        f"{[(b['ldpc_failures'], b['bch_dirty']) for b in batches]}; TS "
+        f"{len(got)} bytes in runs {runs} of the transmitted stream "
+        f"({missing} packets not in it; {pps} packets a superframe); CFO "
+        f"{stats.cfo_hz:+.1f} Hz, SRO estimate a batch "
+        f"{[round(b['sro_ppm'], 3) for b in batches]} ppm, SNR "
+        f"{stats.snr_db:.2f} dB; decoder launches {launches}, screen "
+        f"{screen_launches}")
+    log(f"phase 4 stream timing ({smi}): acquisitions "
+        f"{', '.join(f'{t * 1e3:.1f}' for t in timing['acquire_s'])} ms; "
+        f"batches of 2 frames (host clock) "
+        f"{', '.join(f'{t * 1e3:.1f}' for t in batch_s)} ms; raw input "
+        f"read over time: " + "; ".join(
+            f"{k} {w['raw_samples']} samples in {w['seconds'] * 1e3:.1f} ms "
+            f"= {w['msps']:.3f} Msps = {w['realtime_factor']:.3f}x real "
+            f"time" for k, w in windows.items() if w is not None)
+        + f"; front-end block ({n_in} u8 samples -> {rx.n_up // 2}) "
+        f"{fe_ms:.3f} ms, card vs CPU {fe_err:.2e} of rms; P1 detect on "
+        f"{window.shape[0]} samples {p1_ms:.3f} ms, card {card_p1} CPU "
+        f"{cpu_p1}")
+    problems = []
+    if not (stats.state == "locked" and mode_ok):
+        problems.append("not locked on the flagship mode")
+    if stats.frames != STREAM_FRAMES or any(b["frames"] != 2
+                                            for b in batches):
+        problems.append("not every frame decoded in batches of two")
+    if n_pull > STREAM_PULL_IN_MAX or len(clean) < 2:
+        problems.append(f"SRO pull-in took {n_pull} batches")
+    if failed != list(range(n_pull)):
+        problems.append("codewords failed after the pull-in")
+    if missing:
+        problems.append("TS holds packets that were not transmitted")
+    if (missing_after or sum(runs_after) != superframes_after * pps
+            or len(runs_after) > superframes_after + 1
+            or any(r != pps for r in runs_after[1:-1])):
+        problems.append("TS after the pull-in is not every transmitted "
+                        "superframe, whole")
+    if abs(stats.cfo_hz - 31e3) >= 500:
+        problems.append("CFO off by 500 Hz or more")
+    if launches != n_batches or screen_launches != n_batches:
+        problems.append("not one decoder launch a batch")
+    if fe_err >= 2e-5:
+        problems.append("front end on the card differs from the CPU")
+    if card_p1[0] != cpu_p1[0] or abs(card_p1[1] - cpu_p1[1]) >= 1e-3 \
+            or abs(card_p1[2] - cpu_p1[2]) >= 1e-4:
+        problems.append("P1 search on the card differs from the CPU")
+    if problems:
+        raise AssertionError(f"stream phase: {problems}: {rec}")
+    path.unlink()
 
 
 def kernel_bounds(plan, w, sweeps, n_syn):
@@ -409,7 +757,7 @@ def time_kernels(llr, plp, label):
                plain_ms=plain_ms, screen_plain_ms=screen_plain_ms,
                library_ms=library_ms, screen_max_abs_err=clean_err,
                bound=whole, screen_bound=screen)
-    log(f"phase 4 {label}, W={w}, {sweeps} sweeps, bit-exact: call {ms:.3f} "
+    log(f"phase 5 {label}, W={w}, {sweeps} sweeps, bit-exact: call {ms:.3f} "
         f"ms (bound {whole['bound_ms']:.4f} ms by {whole['bound_by']}), "
         f"without the screen {bare_ms:.3f} ms, so the screen "
         f"{ms - bare_ms:.3f} ms (bound {screen['bound_ms']:.4f} ms by "
@@ -432,17 +780,22 @@ def phase_kernel_table(report, llr):
         torch.from_numpy(np.tile(mixed_llr, (4, 1))).to(DEVICE), plp,
         "mixed load (a quarter hopeless)")
     source = f"{PKG}/ops/csrc/ldpc_layered.cu"
+    recv, strm = report["receive"], report["stream"]
     rows = [
         dict(name="ldpc_layered_bch", route="cuda", source=source,
              replaces="sdr_receiver_dvb_t2_tpu/ops/ldpc_pallas.py:169",
-             launches=report["receive"]["launches"],
+             launches=strm["launches"],
+             launches_by_path=dict(stream=strm["launches"],
+                                   receive=recv["launches"]),
              max_abs_err=main["parity"]["max_abs_err"], ms=main["ms"],
              plain_ms=main["plain_ms"], bound_ms=main["bound"]["bound_ms"],
              bound_by=main["bound"]["bound_by"], library_ms=None,
              note="decoder kernel and screen kernel, one call; ms is both"),
         dict(name="bch_screen", route="cuda", source=source,
              replaces="sdr_receiver_dvb_t2_tpu/ops/ldpc_pallas.py:369",
-             launches=report["receive"]["screen_launches"],
+             launches=strm["screen_launches"],
+             launches_by_path=dict(stream=strm["screen_launches"],
+                                   receive=recv["screen_launches"]),
              max_abs_err=main["screen_max_abs_err"], ms=main["screen_ms"],
              plain_ms=main["screen_plain_ms"],
              bound_ms=main["screen_bound"]["bound_ms"],
@@ -473,8 +826,9 @@ def main(argv=None) -> int:
     report = {}
     phase_build(report)
     phase_kernel_parity(report)
-    llr = phase_receive(report)
-    rows = phase_kernel_table(report, llr)
+    sig = phase_receive(report)
+    phase_stream(report, sig)
+    rows = phase_kernel_table(report, sig["llr"])
     if args.report is not None:
         args.report.parent.mkdir(parents=True, exist_ok=True)
         args.report.write_text(json.dumps(report, indent=1))

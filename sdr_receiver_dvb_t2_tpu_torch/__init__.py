@@ -1,10 +1,15 @@
-"""PyTorch/CUDA port of the DVB-T2 frame-batch receiver.
+"""PyTorch/CUDA port of the DVB-T2 receiver: raw SDR IQ in, MPEG-TS out.
 
 The package mirrors ``sdr_receiver_dvb_t2_tpu`` (``params/``, ``io/``,
-``ops/``, ``models/``) and runs its main path on an NVIDIA GPU: OFDM demod
-(cuFFT), SISO pilot equalization, the composed deinterleave + soft demap to
-int8 LLRs, and the layered min-sum LDPC decoder with its fused BCH syndrome
-screen as a hand-written CUDA kernel (``ops/csrc/ldpc_layered.cu``).
+``ops/``, ``models/``, ``runtime/``) and runs on an NVIDIA GPU.  The entry
+point (``python -m sdr_receiver_dvb_t2_tpu_torch``, ``runtime/stream.py``)
+runs the streaming front end and the P1 search on the card, acquires the
+mode blind on the host, tracks, and hands frame batches to the frame
+receiver (``models/receiver.py``): OFDM demod (cuFFT), SISO pilot
+equalization, the composed deinterleave + soft demap to int8 LLRs, and the
+layered min-sum LDPC decoder with its BCH syndrome screen as a
+hand-written CUDA kernel (``ops/csrc/ldpc_layered.cu``); the BB frames go
+to TS through the C++ runtime in ``native/``.
 
 Device rule: every entry point runs on ``cuda`` unless the caller passes
 ``device="cpu"``.  Without a GPU and without an explicit ``cpu`` it raises;

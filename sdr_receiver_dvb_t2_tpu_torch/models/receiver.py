@@ -9,7 +9,8 @@
       fused into its epilogue; bit packing to bytes
   host:
       L1 acquisition (once per configuration), rare BCH corrections, BB
-      frame de-encapsulation to TS bytes.
+      frame de-encapsulation to TS bytes (the C++ runtime of
+      io/native.py; the Python parser only when asked for).
 
 Every entry point runs on ``cuda`` unless ``device="cpu"`` is passed; on a
 CPU tensor the decoder is the kernel's plain PyTorch twin.
@@ -23,7 +24,8 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..io.bbframe import BBFrameParser, HEADER_BITS
+from ..io.bbframe import HEADER_BITS
+from ..io.native import make_bb_parser
 from ..ops import bch_ops, rx_chain
 from ..ops.ldpc import LayeredDecoder
 from ..params import l1 as l1_mod
@@ -57,8 +59,18 @@ class FrameBatchResult:
 
 
 def config_from_l1(mode_hint: T2Mode, pre: l1_mod.L1Pre,
-                   post: l1_mod.L1Post, plp_idx: int = 0) -> RxConfig:
-    """Build the receiver configuration from decoded L1 signalling."""
+                   post: l1_mod.L1Post, plp_idx: int = 0,
+                   sfn: bool = False) -> RxConfig:
+    """Build the receiver configuration from decoded L1 signalling.
+
+    ``sfn=True`` (acquisition measured a delay spread that needs Wiener
+    rows) is refused: the SFN equalizer is not ported yet (ROADMAP.md
+    section 1 item 12), and the linear plan would decode such a channel
+    wrong without saying so."""
+    if sfn:
+        raise NotImplementedError(
+            "SFN channel (long echo): the Wiener-row equalizer is not "
+            "ported yet (ROADMAP.md section 1 item 12)")
     p = post.plp[plp_idx]
     mode = T2Mode(
         fft_mode=mode_hint.fft_mode,
@@ -94,15 +106,18 @@ def plan_from_numpy(arrays: dict, device) -> dict:
 
 
 class TorchReceiver:
-    """Steady-state frame-batch receiver for one PLP."""
+    """Steady-state frame-batch receiver for one PLP.
 
-    def __init__(self, cfg: RxConfig, device=None):
+    ``bb_parser``: "native" (the C++ de-encapsulator, built at first use;
+    a failed build raises) or "python" (its plain reference)."""
+
+    def __init__(self, cfg: RxConfig, device=None, bb_parser: str = "native"):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.mode = cfg.mode.validate()
         self.plp = cfg.plp
         self.oracle = receiver_ref.ReferenceReceiver(self.mode)
-        self.bb = BBFrameParser()
+        self.bb = make_bb_parser(bb_parser)
         self.decoder = LayeredDecoder(
             self.plp.ldpc_table_name, max_iters=cfg.ldpc_max_iters,
             bch_h=bch_ops._h_matrix(self.plp.k_bch, self.plp.bch_m,
@@ -138,6 +153,13 @@ class TorchReceiver:
         n_sig = l1_mod.L1_PRE_CELLS + self._l1_post_cells
         idx = self.consts["sig_idx"][:n_sig]
         return eq[0].reshape(-1)[idx].cpu().numpy()
+
+    def equalized_cells(self, frames_iq) -> np.ndarray:
+        """Deinterleaved constellation cells (complex, [F*n_fec, n_cells])
+        for diagnostics: the reference's constellation plot data
+        (main_window.cpp:416-476)."""
+        eq, _ = self.compute_plane(frames_iq)
+        return rx_chain.eq_to_cells(eq, self.consts).cpu().numpy()
 
     # ------------------------------------------------------------------
     def acquire_l1(self, frame_iq: np.ndarray):
@@ -233,7 +255,12 @@ class TorchReceiver:
             bits = np.unpackbits(packed_np[i])[:self.plp.n_bch]
             fixed, nerr = bch_ops.correct_host(bits, self.plp)
             corrected[i] = nerr
-            frames_bytes[i] = np.packbits(fixed)
+            # a codeword the BCH could not correct reaches the parser as a
+            # frame it drops, not as its own bytes: those pass the header's
+            # CRC-8 now and then and come out as TS packets that were never
+            # sent (the JAX receiver passes them on, receiver.py:305-309)
+            frames_bytes[i] = (np.packbits(fixed) if nerr >= 0
+                               else self._dropped_frame)
         ts_bytes = self.bb.parse_batch(frames_bytes)
         return FrameBatchResult(
             ts_bytes=ts_bytes,
@@ -245,6 +272,16 @@ class TorchReceiver:
             diag=out,
             padding=self._collect_padding(frames_bytes),
         )
+
+    @functools.cached_property
+    def _dropped_frame(self) -> np.ndarray:
+        """A scrambled BB frame whose header fails its CRC-8, so that a
+        parser drops it and resynchronises as after any damaged header."""
+        frame = np.zeros(self.plp.k_bch // 8, np.uint8)
+        # after nine zero bytes a CRC byte of 0x00 checks as NM and 0x01
+        # as HEM; 0x02 checks as neither
+        frame[9] = 0x02
+        return frame ^ self._scrambler_bytes
 
     @functools.cached_property
     def _scrambler_bytes(self) -> np.ndarray:

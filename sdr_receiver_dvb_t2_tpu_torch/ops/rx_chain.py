@@ -323,6 +323,14 @@ def frames_to_eq(frames_iq: torch.Tensor, plan: ChainPlan, consts: dict):
     return eq, diag
 
 
+def eq_to_cells(eq: torch.Tensor, consts: dict) -> torch.Tensor:
+    """Eq planes [F, L, K] -> the PLP's deinterleaved cells
+    [F*n_fec, n_cells], by the composed gather."""
+    cell_idx = consts["cell_idx"]
+    cells = eq.reshape(eq.shape[0], -1)[:, cell_idx.reshape(-1)]
+    return cells.reshape(-1, cell_idx.shape[1])
+
+
 def packed_to_llr(eq: torch.Tensor, plan: ChainPlan, consts: dict):
     """Eq planes [F, L, K] -> (llr [F*n_fec, N] int8, snr_db [F]).
 
@@ -333,9 +341,7 @@ def packed_to_llr(eq: torch.Tensor, plan: ChainPlan, consts: dict):
     order (ops/ldpc.kernel_bit_order).
     """
     f = eq.shape[0]
-    cell_idx = consts["cell_idx"]
-    cells = eq.reshape(f, -1)[:, cell_idx.reshape(-1)]
-    cells = cells.reshape(-1, cell_idx.shape[1])        # [F*n_fec, n_cells]
+    cells = eq_to_cells(eq, consts)                     # [F*n_fec, n_cells]
     planes, snr = llr_mod.demap_cells_planes(cells, f, plan.demap)
     if plan.bit_blocks is not None:
         # each kernel-row block is one bit plane sliced at stride `step`

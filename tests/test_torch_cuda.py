@@ -104,3 +104,144 @@ def test_receiver_cuda_equals_cpu(cuda):
     assert abs(b.snr_db - a.snr_db) < 0.01
     outs = list(rx.receive_stream([frames, frames]))
     assert all(o.bch_clean.all() for o in outs)
+
+
+# ---------------------------------------------------------------------------
+# the streaming slice on the card against the CPU
+# ---------------------------------------------------------------------------
+def _bandlimited(n, seed, bw=0.8):
+    rng = np.random.default_rng(seed)
+    spec = np.zeros(n, dtype=np.complex128)
+    k = int(n * bw / 2)
+    spec[:k] = rng.standard_normal(k) + 1j * rng.standard_normal(k)
+    spec[-k:] = rng.standard_normal(k) + 1j * rng.standard_normal(k)
+    return (np.fft.ifft(spec) * np.sqrt(n / (2 * k))).astype(np.complex64)
+
+
+def _rel(a, b):
+    a, b = a.cpu().numpy(), b.cpu().numpy()
+    return float(np.max(np.abs(a - b)) / np.sqrt(np.mean(np.abs(b) ** 2)))
+
+
+def test_frontend_block_cuda_equals_cpu(cuda):
+    """One front-end block at the stream's size (2^19 Farrow outputs,
+    10 Msps in) with cuDNN's TF32 switch left on, as PyTorch ships it: the
+    convolutions stay float32 (TF32 would round their inputs to ~1e-3),
+    so every output is within 2e-5 of the CPU's rms, the conditioner's
+    statistics within 1e-5 relative.  The Farrow positions may move by
+    FMA contraction at a floor boundary, so the samples are compared, not
+    the indices."""
+    from sdr_receiver_dvb_t2_tpu_torch.ops import frontend as fe
+    cudnn = torch.backends.cudnn
+    saved = cudnn.allow_tf32
+    cudnn.allow_tf32 = True
+    try:
+        step = 10e6 / (4 * 64e6 / 7) * (1 + 19e-6)
+        n_up = 1 << 19
+        hi, lo = fe.split_step(step)
+        raw = torch.from_numpy(_bandlimited(int(n_up * step) + 64, 1) * 0.3
+                               + np.complex64(0.02 - 0.01j))
+        hb = torch.from_numpy(np.asarray(fe.halfband_taps(), np.float32))
+        fir = torch.from_numpy(fe.fir_taps("medium"))
+        hist = _bandlimited(64, 2)
+        outs = {}
+        for dev in ("cpu", cuda):
+            h = [torch.from_numpy(hist[:len(fir) - 1]).to(dev),
+                 torch.from_numpy(hist[:len(hb) - 1]).to(dev),
+                 torch.from_numpy(hist[1:len(hb)]).to(dev)]
+            outs[str(dev)] = fe.frontend_block(
+                raw.to(dev), np.float32(0.01), np.float32(1.02),
+                np.float32(0.4), np.float32(0.0213), np.float32(1.3), hi, lo,
+                *h, fir.to(dev), hb.to(dev), n_up,
+                (np.float32(0.3), np.float32(0.05), np.float32(0.01),
+                 np.float32(-0.02)))
+        a, b = outs["cuda"], outs["cpu"]
+        assert a[0].device.type == "cuda" and a[0].shape == (n_up // 2,)
+        for got, want in zip(a[:4], b[:4]):          # elem and histories
+            assert _rel(got, want) < 2e-5
+        np.testing.assert_allclose(a[4].cpu().numpy(), b[4].numpy(),
+                                   rtol=1e-5, atol=1e-7)
+        np.testing.assert_allclose(a[5].cpu().numpy(), b[5].numpy(),
+                                   rtol=1e-3, atol=1e-6)
+        # the convolutions alone, against a float64 oracle
+        x = torch.from_numpy(_bandlimited(1 << 20, 3))
+        y = fe._conv_f32(x.to(cuda), fir.to(cuda), 2)
+        want = np.convolve(x.numpy().astype(np.complex128),
+                           fe.fir_taps("medium").astype(np.float64),
+                           mode="valid")[::2]
+        assert _rel(y, torch.from_numpy(want)) < 2e-6
+        assert cudnn.allow_tf32                       # restored after
+    finally:
+        cudnn.allow_tf32 = saved
+
+
+def test_p1_detect_cuda_equals_cpu(cuda):
+    """P1 search over an acquisition window of the flagship's size (3.5 M
+    samples) with the P1 near its end, where the float32 cumulative sums
+    have grown most: t0 equal, the peak metric within 1e-3, cfo_frac within
+    1e-4 rad/sample."""
+    from sdr_receiver_dvb_t2_tpu_torch.ops import p1_detect
+    from sdr_receiver_dvb_t2_tpu_torch.params import p1 as p1_mod
+    rng = np.random.default_rng(4)
+    n = 3_500_000
+    x = ((rng.standard_normal(n) + 1j * rng.standard_normal(n))
+         * np.sqrt(0.05)).astype(np.complex64)
+    x[3_100_000:3_100_000 + 2048] += p1_mod.generate(0, 5)
+    x *= np.exp(1j * 0.0021 * np.arange(n)).astype(np.complex64)
+    xt = torch.from_numpy(x)
+    t0, peak, cfo = p1_detect.detect(xt.to(cuda))
+    ct0, cpeak, ccfo = p1_detect.detect(xt)
+    assert t0.device.type == "cuda"
+    assert int(t0) == int(ct0) and abs(int(t0) - 3_100_000) <= 2
+    assert abs(float(peak) - float(cpeak)) < 1e-3 and float(peak) > 0.3
+    assert abs(float(cfo) - float(ccfo)) < 1e-4
+
+
+@pytest.mark.parametrize("table", ["SHORT_C1_4", "SHORT_C1_2"])
+def test_flooding_decoder_cuda_equals_cpu(cuda, table):
+    """The L1 soft path's flooding decoder: bit-exact hard/ok/iters on
+    integer LLRs (index_add_ sums integers exactly in any order)."""
+    from sdr_receiver_dvb_t2_tpu_torch.ops import ldpc_decode
+    from sdr_receiver_dvb_t2_tpu_torch.params import ldpc as ldpc_par
+    code = ldpc_par.get_code(table)
+    rng = np.random.default_rng(5)
+    cw = code.encode(rng.integers(0, 2, (6, code.k), dtype=np.uint8))
+    llr = (1 - 2 * cw.astype(np.float32)) * 12 + rng.normal(
+        0, 1, cw.shape) * np.array([0, 3, 5, 6.5, 8, 20])[:, None]
+    llr = torch.from_numpy(llr.round().clip(-127, 127).astype(np.float32))
+    dec = ldpc_decode.make_decoder(table, 30)
+    got, want = dec(llr.to(cuda)), dec(llr)
+    assert got[0].device.type == "cuda"
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
+    assert bool(want[1][0]) and not bool(want[1][5])
+
+
+def test_stream_cuda_equals_cpu(cuda, tmp_path):
+    """The 2K u8 capture (10 Msps, CFO 31 kHz, SRO 19 ppm) through the
+    streaming receiver on the card and on the CPU: locked on the same mode,
+    the same TS bytes, equal to the transmitted stream, one decoder launch
+    a batch."""
+    from _port_capture import port_capture, ts_in_stream
+    from sdr_receiver_dvb_t2_tpu_torch.io import sinks, sources
+    from sdr_receiver_dvb_t2_tpu_torch.ops import ldpc
+    from sdr_receiver_dvb_t2_tpu_torch.runtime import stream
+    path, ts, mode = port_capture(tmp_path, guard="G1_32",
+                                  pilot_pattern="PP4")
+    out = {}
+    for dev in ("cpu", cuda):
+        sink = sinks.BufferTsSink()
+        cfg = stream.StreamConfig(frames_per_batch=1,
+                                  acq_elem_samples=3 * mode.frame_samples)
+        rx = stream.StreamingReceiver(sources.RawFileSource(path), sink, cfg,
+                                      device=dev)
+        before = ldpc.LayeredDecoder.launches
+        st = rx.run(max_frames=4)
+        out[str(dev)] = (st, sink.data, rx.mode,
+                         ldpc.LayeredDecoder.launches - before)
+    (st, got, m, launches), (cst, cgot, cm, _) = out["cuda"], out["cpu"]
+    assert st.state == cst.state == "locked" and m == cm
+    assert st.frames == cst.frames >= 4 and launches == st.frames
+    assert st.ldpc_failures == st.bch_dirty == 0
+    assert abs(st.cfo_hz - 31e3) < 500
+    assert got.tobytes() == cgot.tobytes() and ts_in_stream(got, ts)
