@@ -9,10 +9,10 @@ g++, all at once, then:
 
 1. prints the card (name, power limit) and the build time;
 2. holds the LDPC kernel and its BCH screen bit-exact against their plain
-   PyTorch twin (``exit_tile=1``) on all 13 code tables (NORMAL_C2_3 with
-   256 codewords, the others 64), mixing noise-free, noisy and hopeless
-   codewords: the tables differ in the width of the kernel's state word
-   and in its unrolled slot count;
+   PyTorch twin (``exit_tile=1``) on all 15 code tables, the T2-Lite B8
+   and B9 included (NORMAL_C2_3 with 256 codewords, the others 64),
+   mixing noise-free, noisy and hopeless codewords: the tables differ in
+   the width of the kernel's state word and in its unrolled slot count;
 3. receives two frames of the flagship mode (32K, GI 1/128, PP7 extended,
    rotated 256QAM, LDPC 64800 r2/3, 202 FEC blocks per frame) made by the
    port's transmitter with 27 dB AWGN, through ``TorchReceiver`` on the
@@ -38,15 +38,32 @@ g++, all at once, then:
    card against the CPU, and times acquisition, the front end, the P1
    search, each batch, and the raw input read over the whole run, after
    lock and after the pull-in;
-5. at the flagship batch's size holds the kernels against the twin again
+5. (after phases 6-8) at the flagship batch's size holds the kernels
+   against the twin again
    and times them: the whole call, the call without the screen (so the
    screen's own time), the twin, the bounds and the BCH product's
    ``torch.matmul``; then the same on a second load of 1616 codewords of
    which a quarter are hopeless and run all 15 sweeps, so that unequal
    sweeps are on record;
-6. prints the kernel table as one JSON line (launches counted on the
+   then times both kernels on 1616 codewords of each T2-Lite table;
+6. receives two full-width SFN frames (bench.py ``_bench_sfn``: 32K, GI
+   1/32, PP7 extended, whose own pilots fall short of the guard, so the
+   Wiener-row plan) through a -10 dB echo at 0.6 of the guard and 27 dB
+   AWGN: every codeword clean, the TS exact, one launch of each kernel;
+   holds one frame's equalized plane, csi and delay profile on the card
+   against the CPU, and times an 8-frame batch stage by stage;
+7. the same for MISO (bench.py ``_bench_miso``: 32K, GI 1/128, PP8
+   extended, two transmit groups with their own two-path channels);
+8. streams the 2K GI 1/8 PP7 u8 capture of tests/_port_capture.py
+   through ``StreamingReceiver`` on the card: locked with the SFN plan,
+   the TS exact, the first-path timing loop's moves reported, one decoder
+   launch a batch;
+9. prints the kernel table as one JSON line (launches counted on the
    streaming path, and per path), the card's nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
+
+The port's transmitter makes the 32K signals of phases 3, 6 and 7 in
+worker processes started first, beside the builds and phases 1-2.
 
 Any failed phase exits non-zero.  Without a GPU, or without the port's
 package beside it, it exits non-zero before printing any result.
@@ -54,6 +71,7 @@ package beside it, it exits non-zero before printing any result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -86,10 +104,17 @@ STREAM_FRAMES = 16
 STREAM_PULL_IN_MAX = 4
 STREAM_SCALE = 0.4
 
+# the 13 T2 tables and the T2-Lite-only B8 (r1/3) and B9 (r2/5)
 ALL_TABLES = [("NORMAL", r) for r in ("C1_2", "C3_5", "C2_3", "C3_4", "C4_5",
                                        "C5_6")] + [
     ("SHORT", r) for r in ("C1_4", "C1_2", "C3_5", "C2_3", "C3_4", "C4_5",
-                           "C5_6")]
+                           "C5_6", "C1_3", "C2_5")]
+LITE_TABLES = [("SHORT", "C1_3"), ("SHORT", "C2_5")]
+# card against CPU on one full-width frame (phases 6-7): the same float32
+# stages summed in another order; relative rms of the plane and of csi,
+# and the delay profile's largest difference over its peak
+PLANE_REL_DB_MAX = -80.0
+CIR_REL_MAX = 1e-4
 
 
 def log(msg):
@@ -241,6 +266,123 @@ def flagship_config():
     return mode, plp
 
 
+def sfn_config():
+    """bench.py _bench_sfn: 32K, GI 1/32, PP7 extended (its data symbols'
+    own pilots resolve less delay than the guard: the Wiener-row plan),
+    rotated 256QAM, LDPC 64800 r2/3."""
+    from sdr_receiver_dvb_t2_tpu_torch.params.modes import GuardInterval
+    mode, plp = flagship_config()
+    return dataclasses.replace(mode, guard=GuardInterval.G1_32), plp
+
+
+def miso_config():
+    """bench.py _bench_miso: 32K, GI 1/128, PP8 extended MISO, rotated
+    256QAM, LDPC 64800 r2/3."""
+    from sdr_receiver_dvb_t2_tpu_torch.params.modes import PilotPattern
+    mode, plp = flagship_config()
+    return dataclasses.replace(mode, pilot_pattern=PilotPattern.PP8,
+                               miso=True), plp
+
+
+def frame_capacity(mode, plp, n_frames):
+    """(FEC blocks that fill a frame after L1, L1-post cells), as bench.py
+    _frame_capacity computes them."""
+    from sdr_receiver_dvb_t2_tpu_torch.models.transmitter import (
+        Transmitter, TxConfig)
+    from sdr_receiver_dvb_t2_tpu_torch.params import l1 as l1_mod
+    tmp = Transmitter(TxConfig(mode=mode, plp=plp, fec_blocks_per_frame=1,
+                               num_t2_frames=n_frames))
+    l1_post = tmp.l1_pre.l1_post_size
+    n_fec = (mode.frame_cells - l1_mod.L1_PRE_CELLS - l1_post) \
+        // plp.cells_per_fec_block
+    return n_fec, l1_post
+
+
+def _awgn(iq, snr_db, seed):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    npow = np.mean(np.abs(iq) ** 2) / 10 ** (snr_db / 10)
+    return iq + ((rng.standard_normal(iq.shape)
+                  + 1j * rng.standard_normal(iq.shape))
+                 * np.sqrt(npow / 2)).astype(np.complex64)
+
+
+def sfn_channel(n_frames=2, echo=0.32):
+    """bench.py _bench_sfn's channel on the port's transmitter output,
+    before the noise: n_frames + 1 frames (the first is the echo's
+    warm-up) with a ``echo``-amplitude copy (0.32: -10 dB) at 0.6 of the
+    guard (614 samples).  Returns (IQ, n_fec, TS, l1_post_size)."""
+    import numpy as np
+    from sdr_receiver_dvb_t2_tpu_torch.models.transmitter import (
+        Transmitter, TxConfig, random_ts_stream)
+    mode, plp = sfn_config()
+    n_fec, l1_post = frame_capacity(mode, plp, n_frames + 1)
+    tx = Transmitter(TxConfig(mode=mode, plp=plp, fec_blocks_per_frame=n_fec,
+                              num_t2_frames=n_frames + 1))
+    ts = random_ts_stream((n_frames + 2) * n_fec * (plp.k_bch // 8) // 188,
+                          seed=13)
+    iq = tx.modulate(ts)[:(n_frames + 1) * mode.frame_samples]
+    d = int(0.6 * mode.guard_size)
+    iq = iq + echo * np.concatenate([np.zeros(d, np.complex64), iq[:-d]])
+    return iq, n_fec, ts, l1_post
+
+
+def make_sfn_signal(n_frames=2, snr_db=27.0):
+    """bench.py _bench_sfn's signal: sfn_channel, 27 dB AWGN, frame 0
+    dropped.  Returns (frames, n_fec, TS, l1_post_size, transmitter
+    seconds)."""
+    import numpy as np
+    t0 = time.perf_counter()
+    mode, _ = sfn_config()
+    iq, n_fec, ts, l1_post = sfn_channel(n_frames)
+    frames = _awgn(iq, snr_db, 29)[mode.frame_samples:].reshape(
+        n_frames, mode.frame_samples)
+    return (frames.astype(np.complex64), n_fec, ts, l1_post,
+            time.perf_counter() - t0)
+
+
+def miso_channel(n_frames=2):
+    """bench.py _bench_miso's channel on the port's transmitter output,
+    before the noise: each transmit group through its own two-path
+    channel, summed.  Returns (IQ, n_fec, TS, l1_post_size)."""
+    import numpy as np
+    from sdr_receiver_dvb_t2_tpu_torch.models.transmitter import (
+        Transmitter, TxConfig, random_ts_stream)
+    mode, plp = miso_config()
+    n_fec, l1_post = frame_capacity(mode, plp, n_frames)
+    tx = Transmitter(TxConfig(mode=mode, plp=plp, fec_blocks_per_frame=n_fec,
+                              num_t2_frames=n_frames))
+    ts = random_ts_stream((n_frames + 1) * n_fec * (plp.k_bch // 8) // 188,
+                          seed=17)
+    iq1, iq2 = tx.modulate(ts)
+    n = n_frames * mode.frame_samples
+    g1 = np.zeros(64, np.complex64)
+    g1[0], g1[23] = 0.9 * np.exp(1j * 0.3), 0.22 * np.exp(-1j * 2.1)
+    g2 = np.zeros(64, np.complex64)
+    g2[4], g2[41] = 0.6 * np.exp(1j * 1.2), 0.18 * np.exp(1j * 0.4)
+    iq = np.convolve(iq1[:n], g1)[:n] + np.convolve(iq2[:n], g2)[:n]
+    return iq, n_fec, ts, l1_post
+
+
+def make_miso_signal(n_frames=2, snr_db=27.0):
+    """bench.py _bench_miso's signal: miso_channel and 27 dB AWGN.
+    Returns (frames, n_fec, TS, l1_post_size, transmitter seconds)."""
+    import numpy as np
+    t0 = time.perf_counter()
+    mode, _ = miso_config()
+    iq, n_fec, ts, l1_post = miso_channel(n_frames)
+    frames = _awgn(iq, snr_db, 31).reshape(n_frames, mode.frame_samples)
+    return (frames.astype(np.complex64), n_fec, ts, l1_post,
+            time.perf_counter() - t0)
+
+
+def make_flagship_signal():
+    """make_signal on the flagship, with the transmitter's seconds."""
+    t0 = time.perf_counter()
+    out = make_signal(*flagship_config())
+    return out + (time.perf_counter() - t0,)
+
+
 def make_signal(mode, plp, n_frames=2, snr_db=27.0):
     """Full frames from the port's transmitter plus seeded AWGN."""
     import numpy as np
@@ -264,19 +406,17 @@ def make_signal(mode, plp, n_frames=2, snr_db=27.0):
     return (iq + noise).astype(np.complex64), n_fec, ts
 
 
-def phase_receive(report):
+def phase_receive(report, signal):
+    """Phase 3 on ``signal`` (make_flagship_signal's result)."""
     import numpy as np
-    import torch
     from sdr_receiver_dvb_t2_tpu_torch.io.bbframe import BBFrameParser
     from sdr_receiver_dvb_t2_tpu_torch.io.native import NativeBBFrameParser
     from sdr_receiver_dvb_t2_tpu_torch.models.receiver import (
         RxConfig, TorchReceiver)
-    from sdr_receiver_dvb_t2_tpu_torch.ops import bch_ops, ldpc, rx_chain
+    from sdr_receiver_dvb_t2_tpu_torch.ops import ldpc
 
     mode, plp = flagship_config()
-    t0 = time.perf_counter()
-    frames, n_fec, ts = make_signal(mode, plp)
-    tx_s = time.perf_counter() - t0
+    frames, n_fec, ts, tx_s = signal
     rx = TorchReceiver(RxConfig(mode=mode, plp=plp, n_fec_per_frame=n_fec,
                                 n_ti=1), device=DEVICE).prime(frames[0])
     _ = rx.consts
@@ -309,38 +449,9 @@ def phase_receive(report):
         raise AssertionError(f"flagship receive failed: {rec}")
 
     # ---- timing: an 8-frame batch of 1616 codewords ----
-    batch = np.concatenate([frames] * 4)
-    dev_batch = torch.from_numpy(batch).to(DEVICE)
-    plan, consts = rx.plan, rx.consts
-    samples = batch.shape[0] * mode.frame_samples
-    eq, diag = rx_chain.frames_to_eq(dev_batch, plan, consts)
-    llr, _ = rx_chain.packed_to_llr(eq, plan, consts)
-    hard = rx.decoder(llr)[0]
-    stages = dict(
-        demod_eq_ms=cuda_ms(lambda: rx_chain.frames_to_eq(dev_batch, plan,
-                                                          consts)),
-        demap_ms=cuda_ms(lambda: rx_chain.packed_to_llr(eq, plan, consts)),
-        ldpc_bch_kernel_ms=cuda_ms(lambda: rx.decoder(llr)),
-        pack_ms=cuda_ms(lambda: bch_ops.pack_bits(hard[:, :plp.n_bch])),
-    )
-
-    def device_batch():
-        out, done = rx.receive_plane_async(*rx.compute_plane(dev_batch))
-        if done is not None:
-            done.synchronize()
-    device_batch()
-    # peak device memory of one batch, above what is resident between
-    # batches (the frames, the plan's tables)
-    sync()
-    resident = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    device_batch()
-    peak = torch.cuda.max_memory_allocated()
-    reps = 5
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        device_batch()
-    dev_s = (time.perf_counter() - t0) / reps
+    tm, batch, dev_batch, llr = time_frame_batch(rx, frames)
+    samples = batch.size
+    dev_s = tm["device_batch_ms"] / 1e3
     # the host tail (Python BB de-encapsulation) takes seconds a batch:
     # few repetitions of the end-to-end calls
     host_reps = 2
@@ -369,14 +480,11 @@ def phase_receive(report):
     t0 = time.perf_counter()
     outs = list(rx.receive_stream([batch] * n_stream))
     stream_s = (time.perf_counter() - t0) / n_stream
-    if not all(o.bch_clean.all() and o.ldpc_ok.all() for o in outs + [r8]):
+    if not (all(o.bch_clean.all() and o.ldpc_ok.all() for o in outs + [r8])
+            and tm["ldpc_ok"] == tm["bch_clean"] == tm["batch_codewords"]):
         raise AssertionError("8-frame batches did not decode clean")
     timing = dict(
-        batch_frames=int(batch.shape[0]), batch_codewords=int(llr.shape[0]),
-        stages_ms=stages, peak_memory_bytes=int(peak),
-        resident_memory_bytes=int(resident),
-        device_batch_ms=dev_s * 1e3, device_msps=samples / dev_s / 1e6,
-        receive_plane_ms=full_s * 1e3,
+        tm, receive_plane_ms=full_s * 1e3,
         receive_plane_msps=samples / full_s / 1e6,
         host_tail_ms=(full_s - dev_s) * 1e3, bb_parse_ms=parse_s * 1e3,
         bb_parse_native_ms=min(native_s) * 1e3,
@@ -388,7 +496,7 @@ def phase_receive(report):
     report["timing"] = timing
     log(f"phase 3 timing ({report['device']['smi']}), 8 frames / "
         f"{llr.shape[0]} codewords: " + ", ".join(
-            f"{k} {v:.3f}" for k, v in stages.items())
+            f"{k} {v:.3f}" for k, v in tm["stages_ms"].items())
         + f"; device pipeline {dev_s * 1e3:.2f} ms = "
         f"{timing['device_msps']:.1f} Msps; receive_plane "
         f"{timing['receive_plane_msps']:.1f} Msps (host tail "
@@ -401,8 +509,8 @@ def phase_receive(report):
         f"{', '.join(f'{t * 1e3:.2f}' for t in native_s)}), Python "
         f"{timing['bb_parse_ms']:.0f} ms ({report['device']['smi']})")
     log(f"phase 3 peak device memory of one batch "
-        f"(torch.cuda.max_memory_allocated): {peak} B, of which {resident} B "
-        f"resident between batches")
+        f"(torch.cuda.max_memory_allocated): {tm['peak_memory_bytes']} B, of "
+        f"which {tm['resident_memory_bytes']} B resident between batches")
     return dict(llr=llr, frames=frames, ts=ts, ts_superframe=res.ts_bytes)
 
 
@@ -700,6 +808,269 @@ def phase_stream(report, sig):
     path.unlink()
 
 
+def _ts_exact(got, ts):
+    """At least 1000 bytes of TS, a run of the transmitted stream (the
+    receiver may start mid-stream)."""
+    from _port_capture import ts_in_stream      # tests/, on the path
+    return len(got) >= 1000 and ts_in_stream(got, ts)
+
+
+def _rel_db(got, want):
+    import numpy as np
+    return float(10 * np.log10(np.sum(np.abs(got - want) ** 2)
+                               / np.sum(np.abs(want) ** 2)))
+
+
+def card_against_cpu(rx, frame):
+    """One frame's demod + equalize on the card and on the CPU with the
+    same plan: the equalized plane's and csi's relative rms difference
+    (dB), the delay profile's largest difference over its peak, and the
+    first-path index of each."""
+    import numpy as np
+    import torch
+    from sdr_receiver_dvb_t2_tpu_torch.ops import rx_chain
+    x = torch.from_numpy(np.ascontiguousarray(frame[None]))
+    eq_c, d_c = rx_chain.frames_to_eq(x, rx.plan, rx.plan.to_device("cpu"))
+    eq_g, d_g = rx_chain.frames_to_eq(x.to(DEVICE), rx.plan, rx.consts)
+    out = dict(plane_rel_db=_rel_db(eq_g.cpu().numpy(), eq_c.numpy()))
+    for k in ("phase_offset", "sro"):
+        out[f"{k}_max_abs_err"] = float(
+            (d_g[k].cpu() - d_c[k]).abs().max())
+    if "csi" in d_c:
+        out["csi_rel_db"] = _rel_db(d_g["csi"].cpu().numpy(),
+                                    d_c["csi"].numpy())
+        cg, cc = d_g["cir_p"].cpu().numpy()[0], d_c["cir_p"].numpy()[0]
+        first = lambda p: int(np.argmax(p >= 0.08 * p.max()))  # noqa
+        out.update(cir_rel_max=float(np.max(np.abs(cg - cc)) / cc.max()),
+                   cir_first=[first(cg), first(cc)],
+                   cir_first_delay=int(rx.plan.eq.cir_d[first(cc)]))
+    return out
+
+
+def time_frame_batch(rx, frames):
+    """An 8-frame batch (the frames tiled) on the card: the stages in
+    CUDA-event ms, the device batch (host clock, with its copies to the
+    host), device Msps and the batch's peak device memory above what is
+    resident between batches (the frames, the plan's tables).  Returns
+    (timing, the host batch, the device batch, its LLRs)."""
+    import numpy as np
+    import torch
+    from sdr_receiver_dvb_t2_tpu_torch.ops import bch_ops, rx_chain
+    batch = np.concatenate([frames] * (8 // len(frames)))
+    dev_batch = torch.from_numpy(batch).to(DEVICE)
+    plan, consts = rx.plan, rx.consts
+    eq, diag = rx_chain.frames_to_eq(dev_batch, plan, consts)
+    csi = diag.get("csi")
+    llr, _ = rx_chain.packed_to_llr(eq, plan, consts, csi=csi)
+    hard = rx.decoder(llr)[0]
+    stages = dict(
+        demod_eq_ms=cuda_ms(lambda: rx_chain.frames_to_eq(dev_batch, plan,
+                                                          consts)),
+        demap_ms=cuda_ms(lambda: rx_chain.packed_to_llr(eq, plan, consts,
+                                                        csi=csi)),
+        ldpc_bch_kernel_ms=cuda_ms(lambda: rx.decoder(llr)),
+        pack_ms=cuda_ms(lambda: bch_ops.pack_bits(hard[:, :rx.plp.n_bch])))
+
+    def device_batch():
+        out, done = rx.receive_plane_async(*rx.compute_plane(dev_batch))
+        if done is not None:
+            done.synchronize()
+        return out
+    device_batch()
+    sync()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = device_batch()
+    peak = torch.cuda.max_memory_allocated()
+    reps = 5
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        device_batch()
+    dev_s = (time.perf_counter() - t0) / reps
+    timing = dict(batch_frames=int(batch.shape[0]),
+                  batch_codewords=int(llr.shape[0]),
+                  ldpc_ok=int(out["ok"].numpy().sum()),
+                  bch_clean=int(out["clean"].numpy().sum()),
+                  stages_ms=stages, peak_memory_bytes=int(peak),
+                  resident_memory_bytes=int(resident),
+                  device_batch_ms=dev_s * 1e3,
+                  device_msps=batch.size / dev_s / 1e6)
+    return timing, batch, dev_batch, llr
+
+
+def phase_frame_batch(report, key, label, config, signal):
+    """Phases 6-7: two full-width frames of an SFN or MISO configuration
+    through ``TorchReceiver`` on the card (every codeword clean, the TS
+    exact, one launch of each kernel), one frame on the card against the
+    CPU, and an 8-frame batch timed."""
+    import numpy as np
+    from sdr_receiver_dvb_t2_tpu_torch.models.receiver import (
+        RxConfig, TorchReceiver)
+    from sdr_receiver_dvb_t2_tpu_torch.ops import ldpc
+    smi = report["device"]["smi"]
+    mode, plp = config()
+    frames, n_fec, ts, l1_post, tx_s = signal
+    t0 = time.perf_counter()
+    rx = TorchReceiver(RxConfig(mode=mode, plp=plp, n_fec_per_frame=n_fec,
+                                n_ti=1), device=DEVICE)
+    rx._l1_post_cells = l1_post          # the transmitter's L1-post size
+    _ = rx.consts
+    plan_s = time.perf_counter() - t0
+
+    # ---- the main path: counts from this run only ----
+    ldpc.LayeredDecoder.launches = ldpc.LayeredDecoder.screen_launches = 0
+    res = rx.receive(frames)
+    launches = ldpc.LayeredDecoder.launches
+    screen_launches = ldpc.LayeredDecoder.screen_launches
+    n_cw = len(frames) * n_fec
+    finite = all(np.all(np.isfinite(v)) for v in res.diag.values())
+    eq = rx.plan.eq
+    rec = dict(
+        mode=f"{mode.fft_size // 1024}K {mode.guard.name} "
+        f"{mode.pilot_pattern.name}{' ext' if mode.extended_carriers else ''}"
+        f"{' MISO' if mode.miso else ''}",
+        plan=("MISO" if mode.miso else "SFN" if eq.cir_tab is not None
+              else "linear"),
+        interp_groups=len(eq.weights) + len(getattr(eq, "weights_alt", ())),
+        n_fec=n_fec, n_cw=n_cw, ldpc_ok=int(res.ldpc_ok.sum()),
+        bch_clean=int(res.bch_clean.sum()),
+        bch_bits_corrected=res.bch_corrected[~res.bch_clean].tolist(),
+        bch_uncorrectable=int(np.sum(res.bch_corrected < 0)),
+        ts_bytes=int(len(res.ts_bytes)),
+        ts_exact=_ts_exact(res.ts_bytes, ts), snr_db=res.snr_db,
+        diag_keys=sorted(res.diag), diag_finite=finite, launches=launches,
+        screen_launches=screen_launches,
+        iters_hist=np.bincount(res.ldpc_iters).tolist(),
+        transmitter_s=tx_s, plan_s=plan_s)
+    report[key] = rec
+    log(f"phase {label} ({smi}) {rec['mode']}, {rec['plan']} plan with "
+        f"{rec['interp_groups']} interpolation groups (tables "
+        f"{plan_s:.1f} s): ldpc_ok {rec['ldpc_ok']}/{n_cw} bch_clean "
+        f"{rec['bch_clean']}/{n_cw} ts_bytes {rec['ts_bytes']} "
+        f"exact={rec['ts_exact']} snr {res.snr_db:.2f} dB (per frame "
+        f"{[round(float(v), 2) for v in res.diag['snr_db']]}); kernel "
+        f"launches: decoder {launches}, screen {screen_launches}; iters "
+        f"{rec['iters_hist']}; BCH-dirty codewords' corrected bits "
+        f"{rec['bch_bits_corrected']}")
+    rec["card_vs_cpu"] = cvc = card_against_cpu(rx, frames[0])
+    log(f"phase {label} card vs CPU on one frame: " + ", ".join(
+        f"{k} {v}" for k, v in cvc.items()))
+    rec["timing"] = tm = time_frame_batch(rx, frames)[0]
+    log(f"phase {label} timing ({smi}), 8 frames / {tm['batch_codewords']} "
+        f"codewords (ldpc_ok {tm['ldpc_ok']}, bch_clean {tm['bch_clean']}): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in tm["stages_ms"].items())
+        + f"; device batch {tm['device_batch_ms']:.2f} ms = "
+        f"{tm['device_msps']:.1f} Msps; peak device memory "
+        f"{tm['peak_memory_bytes']} B, of which "
+        f"{tm['resident_memory_bytes']} B resident")
+    problems = []
+    if not (rec["ldpc_ok"] == n_cw and tm["ldpc_ok"] == tm["batch_codewords"]
+            and rec["bch_uncorrectable"] == 0):
+        problems.append("not every codeword decoded")
+    if not rec["ts_exact"]:
+        problems.append("TS not a run of the transmitted stream")
+    if not finite:
+        problems.append("diagnostics not finite")
+    if launches != 1 or screen_launches != 1:
+        problems.append("not one launch of each kernel")
+    if cvc["plane_rel_db"] >= PLANE_REL_DB_MAX:
+        problems.append("equalized plane on the card differs from the CPU")
+    if not mode.miso and not (
+            "csi" not in res.diag and "cir_p" in res.diag
+            and cvc["csi_rel_db"] < PLANE_REL_DB_MAX
+            and cvc["cir_rel_max"] < CIR_REL_MAX
+            and cvc["cir_first"][0] == cvc["cir_first"][1]):
+        problems.append("csi / delay profile on the card differ from the "
+                        "CPU, or csi reached the host")
+    if problems:
+        raise AssertionError(f"phase {label}: {problems}: {rec}")
+
+
+def phase_sfn_stream(report):
+    """Phase 8: the 2K GI 1/8 PP7 capture of tests/_port_capture.py (10
+    Msps u8, CFO +31 kHz, SRO +19 ppm, 26 dB) through StreamingReceiver on
+    the card, one frame a batch: locked with the SFN plan, every frame
+    decoded, the TS exact, one decoder launch a batch; the first-path
+    timing loop's move after each batch is reported."""
+    from sdr_receiver_dvb_t2_tpu_torch.io import sinks, sources
+    from sdr_receiver_dvb_t2_tpu_torch.ops import ldpc
+    from sdr_receiver_dvb_t2_tpu_torch.runtime import stream
+    from _port_capture import port_capture      # tests/, on the path
+    smi = report["device"]["smi"]
+    out_dir = ROOT / "build" / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    path, ts, mode = port_capture(out_dir)
+    capture_s = time.perf_counter() - t0
+    sink = sinks.BufferTsSink()
+    cfg = stream.StreamConfig(frames_per_batch=1,
+                              acq_elem_samples=3 * mode.frame_samples)
+    rx = stream.StreamingReceiver(sources.RawFileSource(path), sink, cfg,
+                                  device=DEVICE)
+    batches, step = [], rx.step_batch
+
+    def recorded_step():
+        st = rx.stats
+        before = (st.frames, st.ldpc_failures, st.bch_dirty)
+        t = time.perf_counter()
+        ok = step()
+        sync()
+        if ok:
+            batches.append(dict(
+                ms=(time.perf_counter() - t) * 1e3,
+                frames=st.frames - before[0],
+                ldpc_failures=st.ldpc_failures - before[1],
+                bch_dirty=st.bch_dirty - before[2],
+                cir_nudge=st.cir_nudge, snr_db=st.snr_db))
+        return ok
+    rx.step_batch = recorded_step
+
+    # ---- the main path: counts from this run only ----
+    ldpc.LayeredDecoder.launches = ldpc.LayeredDecoder.screen_launches = 0
+    t0 = time.perf_counter()
+    stats = rx.run()
+    sync()
+    run_s = time.perf_counter() - t0
+    launches = ldpc.LayeredDecoder.launches
+    screen_launches = ldpc.LayeredDecoder.screen_launches
+    got = sink.data
+    r = rx.rx
+    rec = dict(
+        capture_s=capture_s, run_s=run_s, state=stats.state,
+        mode=None if rx.mode is None else f"{rx.mode.fft_size // 1024}K "
+        f"{rx.mode.guard.name} {rx.mode.pilot_pattern.name}",
+        sfn=bool(r is not None and r.cfg.sfn),
+        sfn_plan=bool(r is not None and r.plan.eq.cir_d is not None),
+        frames=stats.frames, ldpc_failures=stats.ldpc_failures,
+        bch_dirty=stats.bch_dirty, ts_bytes=int(len(got)),
+        ts_exact=_ts_exact(got, ts), cfo_hz=stats.cfo_hz,
+        sro_ppm=float(stats.sro_ppm), snr_db=stats.snr_db,
+        cir_nudges=[b["cir_nudge"] for b in batches], batches=batches,
+        launches=launches, screen_launches=screen_launches)
+    report["sfn_stream"] = rec
+    log(f"phase 8 SFN stream ({smi}): 2K GI 1/8 PP7 u8 capture "
+        f"(made in {capture_s:.1f} s), {rec['state']} on {rec['mode']}, "
+        f"sfn={rec['sfn']}; {stats.frames} frames in {len(batches)} "
+        f"batches in {run_s:.2f} s; LDPC failures {stats.ldpc_failures}, "
+        f"BCH-dirty {stats.bch_dirty}; TS {len(got)} bytes, "
+        f"exact={rec['ts_exact']}; CFO {stats.cfo_hz:+.1f} Hz, SRO "
+        f"{stats.sro_ppm:+.2f} ppm, SNR {stats.snr_db:.2f} dB; first-path "
+        f"timing moves a batch {rec['cir_nudges']}; decoder launches "
+        f"{launches}, screen {screen_launches}")
+    problems = []
+    if not (stats.state == "locked" and rec["sfn"] and rec["sfn_plan"]):
+        problems.append("not locked with the SFN plan")
+    if stats.frames < 6 or stats.ldpc_failures or not rec["ts_exact"]:
+        problems.append("frames lost, failed codewords or TS not exact")
+    if launches != len(batches) or screen_launches != len(batches):
+        problems.append("not one decoder launch a batch")
+    if any(abs(n) > 24 for n in rec["cir_nudges"]):
+        problems.append("a first-path move beyond the loop's clamp")
+    if problems:
+        raise AssertionError(f"phase 8: {problems}: {rec}")
+    Path(path).unlink()
+
+
 def kernel_bounds(plan, w, sweeps, n_syn):
     """Least times (ms) the card could take for the decoder with its screen
     and for the screen alone, from this run's sizes and sweeps: each input
@@ -779,14 +1150,36 @@ def phase_kernel_table(report, llr):
     mixed = time_kernels(
         torch.from_numpy(np.tile(mixed_llr, (4, 1))).to(DEVICE), plp,
         "mixed load (a quarter hopeless)")
+    lite = {}
+    for i, (frame, rate) in enumerate(LITE_TABLES):
+        llr_l, plp_l = coded_llrs(rate, frame, 1616, seed=31 + i)
+        lite[plp_l.ldpc_table_name] = time_kernels(
+            torch.from_numpy(llr_l).to(DEVICE), plp_l,
+            f"T2-Lite table {plp_l.ldpc_table_name}")
     source = f"{PKG}/ops/csrc/ldpc_layered.cu"
     recv, strm = report["receive"], report["stream"]
+    paths = dict(stream="stream", receive="receive", sfn_receive="sfn",
+                 miso_receive="miso", sfn_stream="sfn_stream")
+
+    def by_path(count):
+        return {name: report[key][count] for name, key in paths.items()}
+
+    def lite_rows(screen):
+        return {t: dict(n_cw=r["n_cw"], sweeps=r["sweeps"],
+                        ms=r["screen_ms"] if screen else r["ms"],
+                        plain_ms=(r["screen_plain_ms"] if screen
+                                  else r["plain_ms"]),
+                        bound_ms=r["screen_bound" if screen
+                                   else "bound"]["bound_ms"],
+                        library_ms=r["library_ms"] if screen else None,
+                        max_abs_err=(r["screen_max_abs_err"] if screen
+                                     else r["parity"]["max_abs_err"]))
+                for t, r in lite.items()}
     rows = [
         dict(name="ldpc_layered_bch", route="cuda", source=source,
              replaces="sdr_receiver_dvb_t2_tpu/ops/ldpc_pallas.py:169",
              launches=strm["launches"],
-             launches_by_path=dict(stream=strm["launches"],
-                                   receive=recv["launches"]),
+             launches_by_path=by_path("launches"), lite=lite_rows(False),
              max_abs_err=main["parity"]["max_abs_err"], ms=main["ms"],
              plain_ms=main["plain_ms"], bound_ms=main["bound"]["bound_ms"],
              bound_by=main["bound"]["bound_by"], library_ms=None,
@@ -794,8 +1187,8 @@ def phase_kernel_table(report, llr):
         dict(name="bch_screen", route="cuda", source=source,
              replaces="sdr_receiver_dvb_t2_tpu/ops/ldpc_pallas.py:369",
              launches=strm["screen_launches"],
-             launches_by_path=dict(stream=strm["screen_launches"],
-                                   receive=recv["screen_launches"]),
+             launches_by_path=by_path("screen_launches"),
+             lite=lite_rows(True),
              max_abs_err=main["screen_max_abs_err"], ms=main["screen_ms"],
              plain_ms=main["screen_plain_ms"],
              bound_ms=main["screen_bound"]["bound_ms"],
@@ -804,7 +1197,8 @@ def phase_kernel_table(report, llr):
              note="second kernel of the same call; ms is the call's time "
                   "less its time without the screen"),
     ]
-    report["kernel_table"] = dict(rows=rows, flagship=main, mixed=mixed)
+    report["kernel_table"] = dict(rows=rows, flagship=main, mixed=mixed,
+                                  lite=lite)
     return rows
 
 
@@ -823,11 +1217,30 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(ROOT / "tests"))     # _port_capture
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
     report = {}
-    phase_build(report)
-    phase_kernel_parity(report)
-    sig = phase_receive(report)
+    # the 32K signals, made by the port's transmitter in worker processes
+    # (spawned before this process touches the card) beside the builds
+    with ProcessPoolExecutor(
+            3, mp_context=multiprocessing.get_context("spawn")) as pool:
+        signals = {name: pool.submit(fn) for name, fn in (
+            ("flagship", make_flagship_signal), ("sfn", make_sfn_signal),
+            ("miso", make_miso_signal))}
+        phase_build(report)
+        phase_kernel_parity(report)
+        sig = phase_receive(report, signals["flagship"].result())
+        sfn_signal = signals["sfn"].result()
+        miso_signal = signals["miso"].result()
     phase_stream(report, sig)
+    phase_frame_batch(report, "sfn", "6 SFN frame batch", sfn_config,
+                      sfn_signal)
+    del sfn_signal
+    phase_frame_batch(report, "miso", "7 MISO frame batch", miso_config,
+                      miso_signal)
+    del miso_signal
+    phase_sfn_stream(report)
     rows = phase_kernel_table(report, sig["llr"])
     if args.report is not None:
         args.report.parent.mkdir(parents=True, exist_ok=True)

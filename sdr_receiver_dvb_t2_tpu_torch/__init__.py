@@ -5,8 +5,9 @@ The package mirrors ``sdr_receiver_dvb_t2_tpu`` (``params/``, ``io/``,
 point (``python -m sdr_receiver_dvb_t2_tpu_torch``, ``runtime/stream.py``)
 runs the streaming front end and the P1 search on the card, acquires the
 mode blind on the host, tracks, and hands frame batches to the frame
-receiver (``models/receiver.py``): OFDM demod (cuFFT), SISO pilot
-equalization, the composed deinterleave + soft demap to int8 LLRs, and the
+receiver (``models/receiver.py``): OFDM demod (cuFFT), pilot equalization
+(linear, SFN or MISO), the composed deinterleave + soft demap to int8
+LLRs, and the
 layered min-sum LDPC decoder with its BCH syndrome screen as a
 hand-written CUDA kernel (``ops/csrc/ldpc_layered.cu``); the BB frames go
 to TS through the C++ runtime in ``native/``.

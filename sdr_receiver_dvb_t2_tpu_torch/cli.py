@@ -214,17 +214,16 @@ def main(argv=None) -> int:
 
 def _receive(rx, args) -> int:
     """Acquire, then step batches until the input ends or --max-frames."""
-    try:
-        locked = rx.acquire()
-    except NotImplementedError as e:       # a mode the port cannot receive
-        print(f"acquisition: {e}", file=sys.stderr)
-        return 1
-    if not locked:
+    if not rx.acquire():
         print(f"acquisition failed: {rx.stats.state}", file=sys.stderr)
         return 1
     m = rx.mode
-    print(f"locked: {m.fft_size//1024}K FFT, GI {m.guard.name}, "
-          f"{m.pilot_pattern.name}, L1: {rx.rx.plp.constellation.name} "
+    eq = rx.rx.plan.eq
+    plan = ("MISO" if m.miso else "SFN" if eq.cir_tab is not None
+            else "linear")
+    print(f"locked: {m.fft_size//1024}K FFT{' T2-Lite' if m.lite else ''}, "
+          f"GI {m.guard.name}, {m.pilot_pattern.name}, equalizer {plan}, "
+          f"L1: {rx.rx.plp.constellation.name} "
           f"r={rx.rx.plp.code_rate.name} {rx.rx.plp.fec_frame.name}; "
           f"CFO {rx.stats.cfo_hz:+.0f} Hz", file=sys.stderr)
 

@@ -1,9 +1,9 @@
 """Frame-batch receiver on the GPU: the device data plane + host control.
 
   device (one pass per frame batch, PyTorch on the receiver's device):
-      symbol framing -> batched FFT -> pilot equalization -> composed
-      frequency/time/cell deinterleave + rotated-QAM soft demap -> int8
-      LLR codewords                                         [ops/rx_chain]
+      symbol framing -> batched FFT -> pilot equalization (linear, SFN
+      or MISO plan) -> composed frequency/time/cell deinterleave +
+      rotated-QAM soft demap -> int8 LLR codewords          [ops/rx_chain]
   device (CUDA kernel):
       layered min-sum LDPC with the BCH syndrome screen     [ops/ldpc]
       fused into its epilogue; bit packing to bytes
@@ -42,6 +42,9 @@ class RxConfig:
     n_ti: int
     plp_start: int = 0                  # cell address after L1 (multi-PLP)
     ldpc_max_iters: int = 15
+    sfn: bool = False                   # Wiener rows on a mode whose
+    #                                     default plan is linear (a long
+    #                                     echo measured at acquisition)
 
 
 @dataclasses.dataclass
@@ -63,14 +66,8 @@ def config_from_l1(mode_hint: T2Mode, pre: l1_mod.L1Pre,
                    sfn: bool = False) -> RxConfig:
     """Build the receiver configuration from decoded L1 signalling.
 
-    ``sfn=True`` (acquisition measured a delay spread that needs Wiener
-    rows) is refused: the SFN equalizer is not ported yet (ROADMAP.md
-    section 1 item 12), and the linear plan would decode such a channel
-    wrong without saying so."""
-    if sfn:
-        raise NotImplementedError(
-            "SFN channel (long echo): the Wiener-row equalizer is not "
-            "ported yet (ROADMAP.md section 1 item 12)")
+    ``sfn=True``: acquisition measured a delay spread that needs the
+    Wiener-row (SFN) plan."""
     p = post.plp[plp_idx]
     mode = T2Mode(
         fft_mode=mode_hint.fft_mode,
@@ -78,7 +75,7 @@ def config_from_l1(mode_hint: T2Mode, pre: l1_mod.L1Pre,
         pilot_pattern=PilotPattern(pre.pilot_pattern),
         extended_carriers=bool(pre.bwt_ext),
         papr=Papr(pre.papr),
-        miso=mode_hint.miso,
+        miso=mode_hint.miso,        # from the P1 S1 field (acquisition)
         lite=mode_hint.lite,
         n_data_symbols=pre.num_data_symbols,
     )
@@ -95,7 +92,7 @@ def config_from_l1(mode_hint: T2Mode, pre: l1_mod.L1Pre,
     n_fec = post.dyn.plp[plp_idx].num_blocks
     n_ti = max(1, p.time_il_length if p.time_il_type == 0 else 1)
     return RxConfig(mode=mode, plp=plp, n_fec_per_frame=n_fec, n_ti=n_ti,
-                    plp_start=post.dyn.plp[plp_idx].start)
+                    plp_start=post.dyn.plp[plp_idx].start, sfn=sfn)
 
 
 def plan_from_numpy(arrays: dict, device) -> dict:
@@ -130,7 +127,8 @@ class TorchReceiver:
     def plan(self) -> rx_chain.ChainPlan:
         return rx_chain.get_plan(
             self.mode, self.plp, self.cfg.n_fec_per_frame, self.cfg.n_ti,
-            l1_mod.L1_PRE_CELLS + self._l1_post_cells + self.cfg.plp_start)
+            l1_mod.L1_PRE_CELLS + self._l1_post_cells + self.cfg.plp_start,
+            sfn=self.cfg.sfn)
 
     @functools.cached_property
     def consts(self) -> dict:
@@ -213,8 +211,11 @@ class TorchReceiver:
 
         No padding of the codeword count is needed: the kernel gives each
         codeword its own thread block (the TPU kernel took 128-codeword
-        tiles)."""
-        llr, snr = rx_chain.packed_to_llr(eq, self.plan, self.consts)
+        tiles).  An SFN plan's ``csi`` plane weights the demap and stays on
+        the device (8 frames of it at 32K are 53 MB)."""
+        llr, snr = rx_chain.packed_to_llr(eq, self.plan, self.consts,
+                                          csi=diags.get("csi"))
+        diags = {k: v for k, v in diags.items() if k != "csi"}
         hard, ok, iters, clean = self.decoder(llr)
         # pack to bytes on the device: the copy to the host shrinks 8x and
         # the host receives BB-frame bytes (n_bch, so that the rare dirty

@@ -9,6 +9,7 @@ import functools
 
 import numpy as np
 import torch
+from threadpoolctl import threadpool_limits
 
 from sdr_receiver_dvb_t2_tpu.ops import bch_ops as jbch
 from sdr_receiver_dvb_t2_tpu.ops import ldpc_pallas
@@ -22,6 +23,10 @@ from sdr_receiver_dvb_t2_tpu_torch.params import modes as tm
 # then slow the small int32 ops of the LDPC twin some twentyfold; one
 # thread per worker keeps each file near its single-process time.
 torch.set_num_threads(1)
+# numpy's OpenBLAS likewise: the SFN plans solve one small LMMSE system
+# per 256-carrier segment, and eight spinning BLAS threads a worker slow
+# those solves a hundredfold while the other workers hold the cores
+threadpool_limits(1)
 
 # tests/test_receiver_e2e.py's fixture: 8K, GI 1/32, PP3, 64QAM SHORT r2/3
 FIXTURE_MODE = dict(fft_mode="FFT_8K", guard="G1_32", pilot_pattern="PP3",
@@ -78,18 +83,33 @@ def fixture_frames(snr_db=25.0, phase=np.pi / 6, seed=7, n_packets=400):
 
 def jax_plan_arrays(jplan) -> dict:
     """A JAX ChainPlan's tables as numpy, keyed like the port's
-    ChainPlan.arrays()."""
+    ChainPlan.arrays(): linear, Wiener (SFN) and MISO plans alike."""
     eq = jplan.eq
     out = dict(cell_idx=jplan.cell_idx, bit_rows=jplan.bit_rows,
                sig_idx=jplan.sig_idx, ph_mask1=eq.ph_mask[0],
                ph_mask2=eq.ph_mask[1], regroup=eq.regroup,
                sro_idx=eq.eq_plan.sro_idx, sro_ref=eq.eq_plan.sro_ref,
                sro_first_half=eq.eq_plan.sro_first_half)
-    for j, (wi, si_re, si_im, wb, rot) in enumerate(eq.weights):
-        assert si_im is None and rot is None      # linear rows only
-        out[f"w{j}_win_idx"] = wi
-        out[f"w{j}_si_re"] = si_re
-        out[f"w{j}_wband"] = wb
+
+    def put(prefix, weights):
+        for j, (wi, si_re, si_im, wb, rot) in enumerate(weights):
+            out[f"{prefix}{j}_win_idx"] = wi
+            out[f"{prefix}{j}_si_re"] = si_re
+            out[f"{prefix}{j}_wband"] = wb
+            if si_im is not None:
+                out[f"{prefix}{j}_si_im"] = si_im
+            if rot is not None:
+                out[f"{prefix}{j}_rot_re"], out[f"{prefix}{j}_rot_im"] = rot
+    put("w", eq.weights)
+    if eq.ph_rot is not None:
+        out["ph_rot"] = eq.ph_rot
+    if eq.cir_tab is not None:
+        out["cir_tab_re"], out["cir_tab_im"] = eq.cir_tab
+        out["cir_d"] = eq.cir_d
+    if jplan.mode.miso:
+        put("walt", eq.weights_alt)
+        out.update(regroup_alt=eq.regroup_alt, o_sign=eq.o_sign,
+                   pair_idx=eq.pair_idx, pair_sign=eq.pair_sign)
     return {k: np.asarray(v) for k, v in out.items()}
 
 
@@ -120,7 +140,8 @@ def ldpc_case(name):
     if name == "TINY_UNIFORM_T":
         register_tiny_uniform()
     rng = np.random.default_rng(dict(SHORT_C1_2=1, SHORT_C2_3=1,
-                                     TINY_UNIFORM_T=3, BCH=5, TRIALS=7)[name])
+                                     TINY_UNIFORM_T=3, BCH=5, TRIALS=7,
+                                     B8=9, B9=11)[name])
     table = {"BCH": "SHORT_C1_2", "TRIALS": "SHORT_C1_2"}.get(name, name)
     code = ldpc_mod.get_code(table)
     bch_h, max_iters = None, 30
@@ -151,4 +172,6 @@ def ldpc_case(name):
     return table, x, max_iters, bch_h, len(llr)
 
 
-LDPC_CASES = ["SHORT_C1_2", "SHORT_C2_3", "TINY_UNIFORM_T", "BCH", "TRIALS"]
+# B8 / B9: the T2-Lite-only rate-1/3 and 2/5 tables (annex I)
+LDPC_CASES = ["SHORT_C1_2", "SHORT_C2_3", "TINY_UNIFORM_T", "BCH", "TRIALS",
+              "B8", "B9"]

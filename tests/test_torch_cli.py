@@ -45,11 +45,16 @@ def test_cli_receives_a_file(capture, tmp_path, capsys):
 
 def test_cli_refuses_an_sfn_capture(tmp_path, capsys):
     """On _make_capture's GI 1/8 PP7 capture the acquisition asks for the
-    SFN equalizer, which the port does not have: exit 1, saying so."""
-    path, _, _ = port_capture(tmp_path)
-    assert cli.main(["--input", path, "--out", str(tmp_path / "o.ts"),
-                     "--cpu", "--stats", "0"]) == 1
-    assert "item 12" in capsys.readouterr().err
+    SFN equalizer: the entry point no longer refuses it, it locks with the
+    SFN plan and writes the transmitted TS."""
+    path, ts, _ = port_capture(tmp_path)
+    out = tmp_path / "o.ts"
+    assert cli.main(["--input", path, "--out", str(out), "--cpu",
+                     "--stats", "0", "--frames-per-batch", "1",
+                     "--max-frames", "3"]) == 0
+    assert "GI G1_8, PP7, equalizer SFN" in capsys.readouterr().err
+    got = np.fromfile(out, np.uint8)
+    assert len(got) > 188 * 40 and ts_in_stream(got, ts)
 
 
 def test_cli_without_cpu_needs_a_card(capture, tmp_path):

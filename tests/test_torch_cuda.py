@@ -21,13 +21,16 @@ def cuda():
 
 
 # beside the flagship's table: the 64-bit state word (NORMAL and SHORT
-# r5/6) and the largest state (NORMAL r1/2)
+# r5/6), the largest state (NORMAL r1/2) and the T2-Lite-only B8 (r1/3)
+# and B9 (r2/5), served by the 5-slot kernel with predicated slots
 @pytest.mark.parametrize("rate,frame,n_cw", [("C1_2", "SHORT", 64),
                                              ("C2_3", "SHORT", 64),
                                              ("C2_3", "NORMAL", 48),
                                              ("C5_6", "NORMAL", 32),
                                              ("C5_6", "SHORT", 64),
-                                             ("C1_2", "NORMAL", 32)])
+                                             ("C1_2", "NORMAL", 32),
+                                             ("C1_3", "SHORT", 64),
+                                             ("C2_5", "SHORT", 64)])
 def test_kernel_matches_twin(cuda, rate, frame, n_cw):
     from chip_smoke import check_kernel_against_twin, coded_llrs
     from sdr_receiver_dvb_t2_tpu_torch.ops import ldpc
@@ -245,3 +248,94 @@ def test_stream_cuda_equals_cpu(cuda, tmp_path):
     assert st.ldpc_failures == st.bch_dirty == 0
     assert abs(st.cfo_hz - 31e3) < 500
     assert got.tobytes() == cgot.tobytes() and ts_in_stream(got, ts)
+
+
+# ---------------------------------------------------------------------------
+# the SFN and MISO equalizers on the card against the CPU
+# ---------------------------------------------------------------------------
+def _eq_frames(miso):
+    """Two 2K GI 1/8 PP3 frames (QAM16 SHORT r1/2 rotated) of the port's
+    transmitter: SISO through a 0 dB echo at 200 samples (the SFN plan),
+    or MISO with each transmit group through its own two-path channel;
+    24 dB AWGN.  Returns (receiver on cuda, receiver on the CPU, frames)."""
+    from sdr_receiver_dvb_t2_tpu_torch.models.receiver import (
+        RxConfig, TorchReceiver)
+    from sdr_receiver_dvb_t2_tpu_torch.models.transmitter import (
+        Transmitter, TxConfig, random_ts_stream)
+    from sdr_receiver_dvb_t2_tpu_torch.params.modes import (
+        CodeRate, Constellation, FecFrame, FftMode, GuardInterval,
+        PilotPattern, PlpConfig, T2Mode)
+    mode = T2Mode(FftMode.FFT_2K, GuardInterval.G1_8, PilotPattern.PP3,
+                  False, n_data_symbols=30, miso=miso)
+    plp = PlpConfig(constellation=Constellation.QAM16,
+                    code_rate=CodeRate.C1_2, fec_frame=FecFrame.SHORT,
+                    rotation=True, time_il_length=1)
+    tx = Transmitter(TxConfig(mode=mode, plp=plp, fec_blocks_per_frame=4,
+                              num_t2_frames=3))
+    iq = tx.modulate(random_ts_stream(120, seed=4))
+    n = 3 * mode.frame_samples
+    if miso:
+        g1 = np.zeros(40, np.complex64)
+        g1[0], g1[17] = 0.9 * np.exp(1j * 0.3), 0.25 * np.exp(-1j * 2.1)
+        g2 = np.zeros(40, np.complex64)
+        g2[3], g2[29] = 0.55 * np.exp(1j * 1.2), 0.2 * np.exp(1j * 0.4)
+        iq = np.convolve(iq[0][:n], g1)[:n] + np.convolve(iq[1][:n], g2)[:n]
+    else:
+        iq = iq[:n] + 1j * np.concatenate([np.zeros(200), iq[:n - 200]])
+    rng = np.random.default_rng(5)
+    sigma = np.sqrt(np.mean(np.abs(iq) ** 2) / 10 ** 2.4 / 2)
+    iq = iq + sigma * (rng.standard_normal(n) + 1j * rng.standard_normal(n))
+    frames = iq[mode.frame_samples:].reshape(2, -1).astype(np.complex64)
+    cfg = RxConfig(mode=mode, plp=plp, n_fec_per_frame=4, n_ti=1)
+    rxs = []
+    for dev in ("cuda", "cpu"):
+        rx = TorchReceiver(cfg, device=dev)
+        rx._l1_post_cells = tx.l1_pre.l1_post_size
+        rxs.append(rx)
+    return rxs[0], rxs[1], frames
+
+
+def _rel_db(a, b):
+    a, b = a.cpu().numpy(), b.cpu().numpy()
+    return 10 * np.log10(np.sum(np.abs(a - b) ** 2) / np.sum(np.abs(b) ** 2))
+
+
+@pytest.mark.parametrize("miso", [False, True], ids=["sfn", "miso"])
+def test_sfn_and_miso_planes_cuda_equal_cpu(cuda, miso):
+    """The equalized plane (and on the SFN plan csi and the delay profile)
+    on the card within -80 dB (relative rms) of the CPU's, the same
+    float32 stages summed in another order; both decode every codeword
+    to the same TS."""
+    g, c, frames = _eq_frames(miso)
+    eq_g, d_g = g.compute_plane(frames)
+    eq_c, d_c = c.compute_plane(frames)
+    assert eq_g.device.type == "cuda"
+    assert _rel_db(eq_g, eq_c) < -80.0
+    if not miso:
+        assert _rel_db(d_g["csi"], d_c["csi"]) < -80.0
+        cir_g, cir_c = d_g["cir_p"].cpu(), d_c["cir_p"]
+        assert float((cir_g - cir_c).abs().max()) < 1e-4 * float(cir_c.max())
+    a, b = g.receive_plane(eq_g, d_g), c.receive_plane(eq_c, d_c)
+    assert a.ldpc_ok.all() and a.bch_clean.all() and len(a.ts_bytes) > 0
+    np.testing.assert_array_equal(a.ts_bytes, b.ts_bytes)
+    assert "csi" not in a.diag
+
+
+def test_sfn_plane_holds_float32_with_tf32_allowed(cuda):
+    """With cuBLAS's TF32 switch on (the process's choice, which would
+    round the banded products' and the delay profile's inputs to ~1e-3),
+    the SFN plane, csi and delay profile stay within the float32
+    tolerance of the CPU, and the switch is restored afterwards."""
+    mm = torch.backends.cuda.matmul
+    saved = mm.allow_tf32
+    mm.allow_tf32 = True
+    try:
+        g, c, frames = _eq_frames(False)
+        eq_g, d_g = g.compute_plane(frames)
+        eq_c, d_c = c.compute_plane(frames)
+        assert _rel_db(eq_g, eq_c) < -80.0
+        assert _rel_db(d_g["csi"], d_c["csi"]) < -80.0
+        assert _rel_db(d_g["cir_p"], d_c["cir_p"]) < -80.0
+        assert mm.allow_tf32
+    finally:
+        mm.allow_tf32 = saved

@@ -77,7 +77,7 @@ def test_kernel_bch_layout_matches_plain_screen():
 @pytest.mark.parametrize("table", [
     "NORMAL_C1_2", "NORMAL_C3_5", "NORMAL_C2_3", "NORMAL_C3_4", "NORMAL_C4_5",
     "NORMAL_C5_6", "SHORT_C1_4", "SHORT_C1_2", "SHORT_C3_5", "SHORT_C2_3",
-    "SHORT_C3_4", "SHORT_C4_5", "SHORT_C5_6"])
+    "SHORT_C3_4", "SHORT_C4_5", "SHORT_C5_6", "B8", "B9"])
 def test_tables_match_jax(table):
     """The slot order of every table: the kernel's state word keeps one
     sign bit per slot in this order."""

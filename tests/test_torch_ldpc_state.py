@@ -19,7 +19,7 @@ import _torch_common  # noqa: F401  (pins torch to one thread per worker)
 TABLES = ["NORMAL_C1_2", "NORMAL_C3_5", "NORMAL_C2_3", "NORMAL_C3_4",
           "NORMAL_C4_5", "NORMAL_C5_6", "SHORT_C1_4", "SHORT_C1_2",
           "SHORT_C3_5", "SHORT_C2_3", "SHORT_C3_4", "SHORT_C4_5",
-          "SHORT_C5_6"]
+          "SHORT_C5_6", "B8", "B9"]
 WIDE = {"NORMAL_C4_5", "NORMAL_C5_6", "SHORT_C5_6"}
 M = ldpc.M
 # edge values of the algebra: posterior clip, message clip (asymmetric),

@@ -5,10 +5,10 @@ against the JAX package's ``StreamingReceiver`` on the same file: the same
 mode, frame count and TS bytes, equal to the transmitted stream.
 
 The capture is tests/test_stream_e2e.py's ``_make_capture`` made by the
-port's own transmitter and channel, byte for byte the JAX one.  Its GI 1/8
-PP7 mode makes both packages' acquisition ask for the SFN (Wiener-row)
-equalizer, which the port does not have yet and refuses; the parity run
-takes the same capture at GI 1/32 PP4, where both run the linear plan.
+port's own transmitter and channel, byte for byte the JAX one.  At its GI
+1/8 PP7 both packages' acquisition choose the SFN (Wiener-row) plan, and
+both receivers give the same TS bytes; most checks below run the same
+capture at GI 1/32 PP4, where both run the linear plan.
 
 Also: checkpoint and resume, the UDP source across a timeout, the sinks,
 the threaded source, the AGC, the diagnostics and the monitor.
@@ -58,25 +58,47 @@ def parity_run(tmp_path_factory):
                 got=sink.data, jrx=jrx, jstats=jstats, jgot=jsink.data)
 
 
-def test_capture_is_the_jax_capture(tmp_path):
+@pytest.fixture(scope="module")
+def sfn_run(tmp_path_factory):
+    """_make_capture's GI 1/8 PP7 capture through both receivers (4 frames
+    each): the SFN plan, chosen by both acquisitions."""
+    tmp = tmp_path_factory.mktemp("sfn_stream")
+    path, ts, mode = port_capture(tmp)
+    sink = sinks.BufferTsSink()
+    rx = stream.StreamingReceiver(sources.RawFileSource(path), sink,
+                                  _cfg(mode), device="cpu")
+    stats = rx.run(max_frames=4)
+    jsink = jsinks.BufferTsSink()
+    jrx = jstream.StreamingReceiver(jsources.RawFileSource(path), jsink,
+                                    _cfg(mode, jstream))
+    jstats = jrx.run(max_frames=4)
+    return dict(path=path, ts=ts, mode=mode, rx=rx, stats=stats,
+                got=sink.data, jrx=jrx, jstats=jstats, jgot=jsink.data)
+
+
+def test_capture_is_the_jax_capture(tmp_path, sfn_run):
     from test_stream_e2e import _make_capture
     (tmp_path / "jax").mkdir()
-    (tmp_path / "port").mkdir()
     jpath, jts, _ = _make_capture(tmp_path / "jax")
-    path, ts, mode = port_capture(tmp_path / "port")
+    path, ts = sfn_run["path"], sfn_run["ts"]
     assert path.rsplit("/", 1)[1] == jpath.rsplit("/", 1)[1]
     np.testing.assert_array_equal(ts, jts)
     a, b = np.fromfile(path, np.uint8), np.fromfile(jpath, np.uint8)
     assert len(a) > 1_000_000
     np.testing.assert_array_equal(a, b)
     assert sources.parse_raw_filename(path) == (10_000_000, "u8")
-    # the port refuses this mode's SFN plan instead of decoding it with
-    # linear rows (acquisition measures a spread that asks for Wiener rows)
-    rx = stream.StreamingReceiver(sources.RawFileSource(path),
-                                  sinks.BufferTsSink(), _cfg(mode),
-                                  device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        rx.acquire()
+    # both acquisitions measure a spread that asks for the SFN plan, and
+    # both receivers give the same TS, a run of the transmitted stream
+    r = sfn_run
+    st, jst = r["stats"], r["jstats"]
+    assert st.state == jst.state == "locked"
+    assert r["rx"].rx.cfg.sfn and r["jrx"].rx.cfg.sfn
+    assert r["rx"].rx.plan.eq.cir_tab is not None
+    assert st.frames == jst.frames >= 4
+    assert st.ldpc_failures == jst.ldpc_failures == 0
+    assert len(r["got"]) > 188 * 40
+    assert r["got"].tobytes() == r["jgot"].tobytes()
+    assert ts_in_stream(r["got"], ts)
 
 
 def test_stream_matches_jax_receiver(parity_run):
@@ -159,12 +181,44 @@ def test_checkpoint_resume(parity_run):
 
 
 def test_config_from_l1_refuses_sfn(parity_run):
+    """config_from_l1(sfn=True) no longer refuses: it carries sfn into the
+    configuration and the receiver's plan takes the Wiener rows, on a mode
+    whose default plan is linear."""
     rx = parity_run["rx"]
     cfg = receiver.config_from_l1(rx.mode, rx._l1_pre, rx._l1_post, 0)
     assert cfg.n_fec_per_frame == 4 and cfg.mode == rx.mode
-    with pytest.raises(NotImplementedError, match="item 12"):
-        receiver.config_from_l1(rx.mode, rx._l1_pre, rx._l1_post, 0,
-                                sfn=True)
+    assert not cfg.sfn and rx.rx.plan.eq.ph_rot is None
+    sfn = receiver.config_from_l1(rx.mode, rx._l1_pre, rx._l1_post, 0,
+                                  sfn=True)
+    assert sfn.sfn and sfn.n_fec_per_frame == 4
+    r = receiver.TorchReceiver(sfn, device="cpu")
+    r._l1_post_cells = rx.rx._l1_post_cells
+    assert r.plan.eq.sfn and r.plan.eq.ph_rot is not None
+    assert "cir_tab" in r.consts and len(r.plan.eq.cir_d) > 0
+
+
+def test_checkpoint_resume_keeps_sfn(sfn_run):
+    """save_state/load_state on the SFN capture: the restored receivers
+    keep sfn, re-lock from a P1 search and decode the rest exactly, with
+    the first-path timing loop running."""
+    path, mode = sfn_run["path"], sfn_run["mode"]
+    src = sources.RawFileSource(path)
+    rx1 = stream.StreamingReceiver(src, sinks.BufferTsSink(), _cfg(mode),
+                                   device="cpu")
+    assert rx1.acquire()
+    rx1.step_batch()
+    state = stream.save_state(rx1)
+    src.close()
+    assert [p["sfn"] for p in state["plps"]] == [True]
+    sink2 = sinks.BufferTsSink()
+    rx2 = stream.StreamingReceiver(sources.RawFileSource(path), sink2,
+                                   _cfg(mode), device="cpu")
+    assert stream.load_state(rx2, state)
+    assert rx2.rx.cfg.sfn
+    stats = rx2.run(max_frames=3)
+    assert stats.frames >= 3 and stats.ldpc_failures == 0
+    assert abs(stats.cir_nudge) <= 24
+    assert ts_in_stream(sink2.data, sfn_run["ts"])
 
 
 @pytest.mark.parametrize("fmt", ["u8", "s8", "s16", "f32"])
