@@ -38,7 +38,7 @@ g++, all at once, then:
    card against the CPU, and times acquisition, the front end, the P1
    search, each batch, and the raw input read over the whole run, after
    lock and after the pull-in;
-5. (after phases 6-8) at the flagship batch's size holds the kernels
+5. (after phases 6-9) at the flagship batch's size holds the kernels
    against the twin again
    and times them: the whole call, the call without the screen (so the
    screen's own time), the twin, the bounds and the BCH product's
@@ -58,12 +58,34 @@ g++, all at once, then:
    through ``StreamingReceiver`` on the card: locked with the SFN plan,
    the TS exact, the first-path timing loop's moves reported, one decoder
    launch a batch;
-9. prints the kernel table as one JSON line (launches counted on the
+9. the multi-channel pod through the user's entry point,
+   ``cli.main(["--pod", toml])``: eight u8 captures of the flagship
+   superframe tiled to six frames (10 Msps), each channel behind its own
+   noise-only lead (0.1-1.5 frames) with its own CFO (within +-45 kHz),
+   SRO (within +-2 ppm) and 27 dB AWGN, written under ``build/``; one
+   card, all eight channels a step (one frame each: 1616 codewords, one
+   launch of each kernel a step), tracking, L1 tracking and relock on.
+   Checks: every channel locked, none mismatched, no TS packet that was
+   not transmitted and every superframe's TS whole after at most one
+   settling step, no failed codeword after it, each channel's applied
+   CFO within 500 Hz of its truth, one launch of each kernel a step.
+   Times blind acquisition (a channel and in all), each step's stages on
+   the host clock (window assembly, plane, L1 decode, FEC on the card,
+   host BCH, the entry point's parse and write) and in CUDA events (H2D
+   copy, front end, demod + equalize, demap, kernels, packing), the step
+   wall time and real-time factor, peak device memory; then the step at
+   32 channels (the eight windows repeated, no acquisition): how many
+   flagship channels one card carries in real time.  Then the contiguous
+   ``step()`` of a (2, 2) grid on the one card at 2K (the halo path),
+   against the CPU;
+10. prints the kernel table as one JSON line (launches counted on the
    streaming path, and per path), the card's nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
 The port's transmitter makes the 32K signals of phases 3, 6 and 7 in
-worker processes started first, beside the builds and phases 1-2.
+worker processes started first, beside the builds and phases 1-2; the
+same workers make phase 9's captures from phase 3's noise-free frames
+while phases 4-8 run.
 
 Any failed phase exits non-zero.  Without a GPU, or without the port's
 package beside it, it exits non-zero before printing any result.
@@ -110,6 +132,16 @@ ALL_TABLES = [("NORMAL", r) for r in ("C1_2", "C3_5", "C2_3", "C3_4", "C4_5",
     ("SHORT", r) for r in ("C1_4", "C1_2", "C3_5", "C2_3", "C3_4", "C4_5",
                            "C5_6", "C1_3", "C2_5")]
 LITE_TABLES = [("SHORT", "C1_3"), ("SHORT", "C2_5")]
+# the pod (phase 9): POD_CHANNELS flagship channels decoded a step on one
+# card, the superframe tiled to POD_FRAMES frames; the step timed again at
+# POD_CAPACITY_CHANNELS (the BASELINE's 64 channels are cut to these for
+# the run's time limit: signal generation and blind acquisition grow with
+# the channel count)
+POD_CHANNELS = 8
+POD_CAPACITY_CHANNELS = 32
+POD_FRAMES = 6
+POD_SNR_DB = 27.0
+POD_CFO_MAX_ERR_HZ = 500.0
 # card against CPU on one full-width frame (phases 6-7): the same float32
 # stages summed in another order; relative rms of the plane and of csi,
 # and the delay profile's largest difference over its peak
@@ -384,7 +416,8 @@ def make_flagship_signal():
 
 
 def make_signal(mode, plp, n_frames=2, snr_db=27.0):
-    """Full frames from the port's transmitter plus seeded AWGN."""
+    """Full frames from the port's transmitter plus seeded AWGN.  Returns
+    (frames, n_fec, TS, the frames before the noise)."""
     import numpy as np
     from sdr_receiver_dvb_t2_tpu_torch.models.transmitter import (
         Transmitter, TxConfig, random_ts_stream)
@@ -403,7 +436,7 @@ def make_signal(mode, plp, n_frames=2, snr_db=27.0):
     npow = np.mean(np.abs(iq) ** 2) / 10 ** (snr_db / 10)
     noise = (rng.standard_normal(iq.shape)
              + 1j * rng.standard_normal(iq.shape)) * np.sqrt(npow / 2)
-    return (iq + noise).astype(np.complex64), n_fec, ts
+    return (iq + noise).astype(np.complex64), n_fec, ts, iq
 
 
 def phase_receive(report, signal):
@@ -416,7 +449,7 @@ def phase_receive(report, signal):
     from sdr_receiver_dvb_t2_tpu_torch.ops import ldpc
 
     mode, plp = flagship_config()
-    frames, n_fec, ts, tx_s = signal
+    frames, n_fec, ts, _, tx_s = signal
     rx = TorchReceiver(RxConfig(mode=mode, plp=plp, n_fec_per_frame=n_fec,
                                 n_ti=1), device=DEVICE).prime(frames[0])
     _ = rx.consts
@@ -1071,6 +1104,454 @@ def phase_sfn_stream(report):
     Path(path).unlink()
 
 
+def pod_impairments(n):
+    """Each channel's (noise-only lead in frames, CFO Hz, SRO ppm, noise
+    seed): leads over 0.1-1.5 frames, CFOs over +-45 kHz, SROs over +-2
+    ppm, each spread evenly and shuffled from a seed."""
+    import numpy as np
+    rng = np.random.default_rng(91)
+    leads, cfos, sros = (rng.permutation(np.linspace(lo, hi, n))
+                         for lo, hi in ((0.1, 1.5), (-45e3, 45e3),
+                                        (-2.0, 2.0)))
+    return [(float(leads[c]), float(cfos[c]), float(sros[c]), 300 + c)
+            for c in range(n)]
+
+
+def make_pod_capture(clean, c, path):
+    """Channel c's u8 capture (a worker task): the noise-free superframe
+    ``clean`` tiled to POD_FRAMES frames through the port's channel at
+    STREAM_RATE with the channel's CFO and SRO, behind its noise-only
+    lead, padded to a length common to all channels, POD_SNR_DB of AWGN
+    over the signal's power, quantised to u8 at STREAM_SCALE.  Returns the
+    worker's seconds."""
+    import numpy as np
+    from sdr_receiver_dvb_t2_tpu_torch.models.channel import (
+        ChannelConfig, impair, quantize)
+    from sdr_receiver_dvb_t2_tpu_torch.params.modes import SAMPLE_RATE
+    t0 = time.perf_counter()
+    lead_f, cfo, sro, seed = pod_impairments(POD_CHANNELS)[c]
+    mode, _ = flagship_config()
+    iq = np.tile(clean.reshape(-1), POD_FRAMES // len(clean))
+    n_sig = len(iq)
+    pad = -len(iq) % (1 << max(len(iq).bit_length() - 3, 0))
+    iq = np.concatenate([iq, np.zeros(pad, np.complex64)])
+    dev = impair(iq, ChannelConfig(device_rate=STREAM_RATE, cfo_hz=cfo,
+                                   sro_ppm=sro, seed=seed))
+    frame_raw = mode.frame_samples * STREAM_RATE / SAMPLE_RATE
+    n_dev = int(n_sig * STREAM_RATE / SAMPLE_RATE)
+    lead = int(lead_f * frame_raw)
+    total = int((1.5 + POD_FRAMES + 0.3) * frame_raw)
+    y = np.zeros(total, np.complex64)
+    m = min(len(dev), total - lead)
+    y[lead:lead + m] = dev[:m]
+    npow = np.mean(np.abs(dev[:n_dev]) ** 2) / 10 ** (POD_SNR_DB / 10)
+    rng = np.random.default_rng(seed)
+    y += ((rng.standard_normal(total) + 1j * rng.standard_normal(total))
+          * np.sqrt(npow / 2)).astype(np.complex64)
+    quantize(y, "u8", scale=STREAM_SCALE).tofile(path)
+    return time.perf_counter() - t0
+
+
+class _PodProbe:
+    """Host-clock probes around the pod's stages for one ``--pod`` run:
+    each wrapped method adds its seconds (after a device synchronise, so
+    that the card's work is inside) to the current step's record.  The
+    methods are restored on exit."""
+
+    def __init__(self):
+        self.steps, self.acquire_one_s = [], []
+        self.lock = self.acquire_s = self.saved = None
+        self._acc: dict = {}
+        self._undo = []
+
+    def _wrap(self, owner, name, make):
+        orig = getattr(owner, name)
+        setattr(owner, name, make(orig))
+        self._undo.append((owner, name, orig))
+
+    def _timed(self, key, keep=None):
+        def make(orig):
+            def fn(*a, **kw):
+                sync()
+                t = time.perf_counter()
+                out = orig(*a, **kw)
+                sync()
+                self._acc[key] = self._acc.get(key, 0.0) + (
+                    time.perf_counter() - t)
+                if keep is not None:
+                    keep(a, kw, out)
+                return out
+            return fn
+        return make
+
+    def __enter__(self):
+        import numpy as np
+        from sdr_receiver_dvb_t2_tpu_torch.parallel import (
+            acquire, pod, sharding)
+        probe = self
+
+        def keep_lock(a, kw, out):
+            probe.lock = out
+            probe.acquire_s = probe._acc.pop("acquire")
+
+        def keep_one(a, kw, out):
+            # a channel of the blind acquisition; in the stream, a relock
+            # search of a dark channel, which stays in the step's record
+            if probe.lock is None:
+                probe.acquire_one_s.append(probe._acc.pop("relock_search_s"))
+
+        def keep_step(a, kw, out):
+            # the last step's receiver and inputs, for the stage times
+            rx, buf = a[0], a[1]
+            probe.saved = (rx, buf.clone().pin_memory()
+                           if buf.device.type == "cpu" else buf.clone(),
+                           a[2:])
+        self._wrap(acquire, "blind_acquire", self._timed("acquire",
+                                                         keep_lock))
+        self._wrap(acquire, "_acquire_one", self._timed("relock_search_s",
+                                                        keep_one))
+        S = sharding.ShardedReceiver
+        self._wrap(S, "plane_step_windows", self._timed("plane_s",
+                                                        keep_step))
+        self._wrap(S, "fec_step_async", self._timed("fec_device_s"))
+        self._wrap(S, "fec_finish", self._timed("fec_host_s"))
+        M = pod.MultiChannelReceiver
+        self._wrap(M, "_decode_l1", self._timed("l1_decode_s"))
+        self._wrap(pod._ArrayStore, "window_into", self._timed("window_s"))
+        # the hard bits stream() unpacks from the BB bytes each step (and
+        # a dirty codeword's bits in fec_finish, inside fec_host_s too)
+        self._wrap(np, "unpackbits", self._timed("unpack_s"))
+
+        def make_stream(orig):
+            def stream(rx, *a, **kw):
+                gen = orig(rx, *a, **kw)
+                t_yield = None
+                while True:
+                    t0 = time.perf_counter()
+                    if t_yield is not None:
+                        probe.steps[-1]["entry_tail_s"] = t0 - t_yield
+                        probe.steps[-1]["wall_s"] = t0 - probe.steps[-1][
+                            "t0"]
+                    probe._acc = {}
+                    try:
+                        item = next(gen)
+                    except StopIteration:
+                        return
+                    t_yield = time.perf_counter()
+                    st = item[1]
+                    probe.steps.append(dict(
+                        probe._acc, t0=t0, stream_s=t_yield - t0,
+                        ldpc_failures_ch=st["ldpc_failures_ch"].tolist(),
+                        bch_dirty_ch=st["bch_dirty_ch"].tolist(),
+                        bch_corrected=int(np.sum(
+                            st["plp_results"][0].bch_corrected > 0)),
+                        alive=st["alive"].tolist(),
+                        snr_db_ch=st["snr_db_ch"].tolist(),
+                        cfo_hz_applied=st["cfo_hz_applied"].tolist(),
+                        sro_ppm_applied=st["sro_ppm_applied"].tolist(),
+                        events=list(st["events"])))
+                    yield item
+            return stream
+        self._wrap(M, "stream", make_stream)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, orig in reversed(self._undo):
+            setattr(owner, name, orig)
+
+
+def pod_stage_times(rx, buf, args, reps=5):
+    """CUDA-event ms of one pod step's stages on ``buf`` (the staging
+    buffer [C, n_time, win], pinned) with the step's bases ``args``: the
+    H2D copy, the front end, demod + equalize, demap, the kernels and
+    packing, and the whole step's device work (plane and FEC, with the
+    copies back)."""
+    import numpy as np
+    import torch
+    from sdr_receiver_dvb_t2_tpu_torch.ops import bch_ops, rx_chain
+    from sdr_receiver_dvb_t2_tpu_torch.parallel import sharding
+    idx0, frac0, phase0, freq, step = args
+    dev = rx.mesh.devices[0][0]
+    n_ch, nt = buf.shape[0], buf.shape[1]
+    x = buf.to(dev)
+    fq, s_hi, s_lo = rx._normalize_state(n_ch, freq, step)
+    t = lambda a: torch.from_numpy(                       # noqa: E731
+        np.ascontiguousarray(a).reshape(-1)).to(dev)
+    fir, hb = rx._taps_on(dev)
+    ch = np.arange(n_ch * nt) // nt
+    fe_args = (x.reshape(n_ch * nt, -1), t(idx0), t(frac0), t(phase0),
+               t(fq[ch]), t(s_hi[ch]), t(s_lo[ch]), fir, hb, rx.n_up,
+               rx.k_loc)
+    elem = sharding.front_end(*fe_args)
+    plan, consts = rx.plans[0], rx._consts_on(0, dev)
+    frames = elem.reshape(-1, rx.mode.frame_samples)
+    eq, diag = rx_chain.frames_to_eq(frames, plan, consts)
+    csi = diag.get("csi")
+    llr, _ = rx_chain.packed_to_llr(eq, plan, consts, csi=csi)
+    dec = rx._decoder(rx.plps[0].plp)
+    hard = dec(llr)[0]
+    n_bch = rx.plps[0].plp.n_bch
+    return dict(
+        h2d_copy_ms=cuda_ms(lambda: buf.to(dev, non_blocking=True), reps),
+        front_end_ms=cuda_ms(lambda: sharding.front_end(*fe_args), reps),
+        demod_eq_ms=cuda_ms(lambda: rx_chain.frames_to_eq(frames, plan,
+                                                          consts), reps),
+        demap_ms=cuda_ms(lambda: rx_chain.packed_to_llr(eq, plan, consts,
+                                                        csi=csi), reps),
+        ldpc_bch_kernel_ms=cuda_ms(lambda: dec(llr), reps),
+        pack_ms=cuda_ms(lambda: bch_ops.pack_bits(hard[:, :n_bch]), reps),
+        device_step_ms=cuda_ms(lambda: rx.fec_step_async(
+            rx.plane_step_windows(buf, *args), 0), reps),
+        codewords=int(llr.shape[0]))
+
+
+def pod_step_at(rx, buf, args, n_ch, reps=3):
+    """The pod step with the staging buffer's channels repeated to n_ch:
+    CUDA-event stage times, the host-clock step (plane, FEC with the host
+    BCH, the hard bits unpacked as stream() does) and its peak device
+    memory."""
+    import numpy as np
+    import torch
+    k = n_ch // buf.shape[0]
+    big = buf.repeat(k, 1, 1).pin_memory()
+    idx0, frac0, phase0, freq, step = args
+    tile = lambda a: np.tile(np.asarray(a), (k,) + (1,) * (  # noqa: E731
+        np.ndim(a) - 1)) if np.ndim(a) else a
+    big_args = (tile(idx0), tile(frac0), tile(phase0), tile(freq),
+                tile(step))
+    stages = pod_stage_times(rx, big, big_args, reps)
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fec = rx.fec_step(rx.plane_step_windows(big, *big_args), 0)
+        np.unpackbits(fec.bb_bytes, axis=-1)
+        walls.append(time.perf_counter() - t0)
+    return dict(stages, channels=n_ch, host_step_ms=[w * 1e3 for w in walls],
+                peak_memory_bytes=int(torch.cuda.max_memory_allocated()),
+                ldpc_ok=int(fec.ldpc_ok.sum()),
+                bch_clean=int(fec.bch_clean.sum()))
+
+
+def phase_pod(report, sig, paths):
+    """Phase 9: the pod through ``cli.main(["--pod", toml])`` on the
+    captures ``paths`` (make_pod_capture's), then its stages and its
+    capacity on the card."""
+    import numpy as np
+    import torch
+    from sdr_receiver_dvb_t2_tpu_torch import cli
+    from sdr_receiver_dvb_t2_tpu_torch.ops import ldpc
+    from sdr_receiver_dvb_t2_tpu_torch.params.modes import SAMPLE_RATE
+    smi = report["device"]["smi"]
+    mode, _ = flagship_config()
+    frame_ms = mode.frame_samples / SAMPLE_RATE * 1e3
+    imps = pod_impairments(POD_CHANNELS)
+    out_dir = Path(paths[0]).parent
+    outs = [out_dir / f"ch{c}.ts" for c in range(POD_CHANNELS)]
+    toml = out_dir / "pod.toml"
+    toml.write_text(
+        "track = true\ntrack_l1 = true\nrelock = true\nstats = 0\n"
+        + "".join(f"[[channel]]\ninput = \"{p}\"\nout = \"{o}\"\n"
+                  for p, o in zip(paths, outs)))
+
+    # ---- the main path: counts from this run only ----
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    ldpc.LayeredDecoder.launches = ldpc.LayeredDecoder.screen_launches = 0
+    t0 = time.perf_counter()
+    with _PodProbe() as probe:
+        rc = cli.main(["--pod", str(toml)])
+        sync()
+    run_s = time.perf_counter() - t0
+    launches = ldpc.LayeredDecoder.launches
+    screen_launches = ldpc.LayeredDecoder.screen_launches
+    peak = torch.cuda.max_memory_allocated()
+    lock, steps = probe.lock, probe.steps
+    if rc != 0 or lock is None or not steps:
+        raise AssertionError(f"pod run failed: rc={rc}, lock={lock}, "
+                             f"{len(steps)} steps")
+    n_steps = len(steps)
+    # each channel's TS against the transmitted stream: every superframe
+    # (two frames) carries phase 3's TS, pps packets
+    pps = len(sig["ts_superframe"]) // 188
+    per_ch = []
+    for c, (lead, cfo, sro, _) in enumerate(imps):
+        got = np.fromfile(outs[c], np.uint8) if outs[c].exists() else \
+            np.zeros(0, np.uint8)
+        runs, missing = _ts_runs(got, sig["ts"])
+        cfo_est = (float(lock.freq[c]) * STREAM_RATE / (2 * np.pi)
+                   + steps[-1]["cfo_hz_applied"][c])
+        per_ch.append(dict(
+            lead_frames=lead, cfo_hz=cfo, sro_ppm=sro,
+            pos0=int(lock.pos0[c]), locked=bool(lock.locked[c]),
+            cfo_hz_estimate=cfo_est,
+            sro_ppm_applied=steps[-1]["sro_ppm_applied"][c],
+            ts_bytes=int(len(got)), ts_runs=runs, ts_missing=missing,
+            ldpc_failures=[s["ldpc_failures_ch"][c] for s in steps],
+            bch_dirty=[s["bch_dirty_ch"][c] for s in steps]))
+    walls = [s["wall_s"] for s in steps if "wall_s" in s]
+    wall_ms = float(np.median(walls)) * 1e3 if walls else float("nan")
+    keys = ("window_s", "plane_s", "l1_decode_s", "fec_device_s",
+            "fec_host_s", "unpack_s", "entry_tail_s", "stream_s", "wall_s")
+    step_ms = {k: [s.get(k, 0.0) * 1e3 for s in steps] for k in keys}
+    rec = dict(channels=POD_CHANNELS, frames=POD_FRAMES, rc=rc,
+               run_s=run_s, steps=n_steps, launches=launches,
+               screen_launches=screen_launches,
+               acquire_s=probe.acquire_s, acquire_one_s=probe.acquire_one_s,
+               mismatched=list(lock.mismatched), channels_detail=per_ch,
+               step_host_ms=step_ms, step_wall_ms_median=wall_ms,
+               realtime_factor_per_channel=frame_ms / wall_ms,
+               channels_realtime_end_to_end=POD_CHANNELS * frame_ms / wall_ms,
+               peak_memory_bytes=int(peak),
+               events=[e for s in steps for e in s["events"]],
+               bch_corrected=[s["bch_corrected"] for s in steps])
+    report["pod"] = rec
+    log(f"phase 9 pod ({smi}): {POD_CHANNELS} flagship channels, "
+        f"{n_steps} steps of one frame each ({frame_ms:.1f} ms of signal); "
+        f"exit {rc}; locked {[d['locked'] for d in per_ch]}, mismatched "
+        f"{rec['mismatched']}; blind acquisition {probe.acquire_s:.2f} s "
+        f"(a channel {', '.join(f'{t:.2f}' for t in probe.acquire_one_s)} "
+        f"s); LDPC failures a step and channel "
+        f"{[s['ldpc_failures_ch'] for s in steps]}; BCH-corrected "
+        f"codewords a step {rec['bch_corrected']}; decoder launches "
+        f"{launches}, screen {screen_launches}; peak device memory {peak} B")
+    for c, d in enumerate(per_ch):
+        log(f"phase 9 ch{c}: lead {d['lead_frames']:.2f} frames, CFO "
+            f"{d['cfo_hz']:+.0f} Hz (estimate {d['cfo_hz_estimate']:+.1f}), "
+            f"SRO {d['sro_ppm']:+.2f} ppm (applied "
+            f"{d['sro_ppm_applied']:+.3f}); TS {d['ts_bytes']} bytes in runs "
+            f"{d['ts_runs']} ({d['ts_missing']} packets not transmitted; "
+            f"{pps} a superframe)")
+    log(f"phase 9 step host clock ms ({smi}): " + "; ".join(
+        f"{k[:-2]} {[round(v, 1) for v in vs]}" for k, vs in step_ms.items())
+        + f"; median step wall {wall_ms:.1f} ms = "
+        f"{rec['realtime_factor_per_channel']:.3f}x real time a channel, "
+        f"{rec['channels_realtime_end_to_end']:.1f} channels end to end")
+
+    # ---- the stages in CUDA events, at 8 and at 32 channels ----
+    rx, buf, args = probe.saved
+    cap = {}
+    for n_ch in (POD_CHANNELS, POD_CAPACITY_CHANNELS):
+        cap[n_ch] = r = pod_step_at(rx, buf, args, n_ch)
+        r["channels_realtime_device"] = (n_ch * frame_ms
+                                         / r["device_step_ms"])
+        r["channels_realtime_host_step"] = (
+            n_ch * frame_ms / float(np.median(r["host_step_ms"])))
+        log(f"phase 9 stages at {n_ch} channels ({r['codewords']} "
+            f"codewords; CUDA events, {smi}): " + ", ".join(
+                f"{k} {r[k]:.3f}" for k in (
+                    "h2d_copy_ms", "front_end_ms", "demod_eq_ms",
+                    "demap_ms", "ldpc_bch_kernel_ms", "pack_ms",
+                    "device_step_ms"))
+            + f"; host-clock step {[round(v, 1) for v in r['host_step_ms']]}"
+            f" ms; peak device memory {r['peak_memory_bytes']} B; channels "
+            f"in real time: device {r['channels_realtime_device']:.1f}, "
+            f"host step {r['channels_realtime_host_step']:.1f}")
+    rec["capacity"] = {str(k): v for k, v in cap.items()}
+
+    problems = []
+    if not (lock.locked.all() and not lock.mismatched
+            and all(steps[-1]["alive"])):
+        problems.append("not every channel locked and alive")
+    settled = steps[1:]
+    if any(any(s["ldpc_failures_ch"]) for s in settled):
+        problems.append("failed codewords after the settling step")
+    for c, d in enumerate(per_ch):
+        runs = d["ts_runs"]
+        if d["ts_missing"]:
+            problems.append(f"ch{c}: TS packets that were not transmitted")
+        if (sum(runs) < pps * ((n_steps - 1) // 2)
+                or len(runs) > (n_steps + 1) // 2 + 1
+                or any(r != pps for r in runs[1:-1])):
+            problems.append(f"ch{c}: TS not every superframe whole")
+        if abs(d["cfo_hz_estimate"] - d["cfo_hz"]) >= POD_CFO_MAX_ERR_HZ:
+            problems.append(f"ch{c}: CFO off by {POD_CFO_MAX_ERR_HZ} Hz")
+    if launches != n_steps or screen_launches != n_steps:
+        problems.append("not one launch of each kernel a step")
+    if any(r["ldpc_ok"] != r["codewords"] for r in cap.values()):
+        problems.append("the repeated steps did not decode")
+    if problems:
+        raise AssertionError(f"phase 9: {problems}: {rec}")
+    for p in list(paths) + outs:
+        Path(p).unlink(missing_ok=True)
+
+
+def phase_pod_halo(report):
+    """Phase 9, the contiguous path: step() of a (2, 2) grid, all four
+    shards on the one card, on two 2K channels (the second with a 2 kHz
+    CFO), each time block behind its halo; against the same step on the
+    CPU."""
+    import numpy as np
+    from sdr_receiver_dvb_t2_tpu_torch.io.bbframe import BBFrameParser
+    from sdr_receiver_dvb_t2_tpu_torch.models.channel import (
+        ChannelConfig, impair)
+    from sdr_receiver_dvb_t2_tpu_torch.models.transmitter import (
+        Transmitter, TxConfig, random_ts_stream)
+    from sdr_receiver_dvb_t2_tpu_torch.ops import ldpc
+    from sdr_receiver_dvb_t2_tpu_torch.parallel import sharding
+    from sdr_receiver_dvb_t2_tpu_torch.params.modes import (
+        SAMPLE_RATE, CodeRate, Constellation, FecFrame, FftMode,
+        GuardInterval, PilotPattern, PlpConfig, T2Mode)
+    mode = T2Mode(FftMode.FFT_2K, GuardInterval.G1_8, PilotPattern.PP7,
+                  False, n_data_symbols=30)
+    plp = PlpConfig(constellation=Constellation.QAM16,
+                    code_rate=CodeRate.C1_2, fec_frame=FecFrame.SHORT,
+                    rotation=True, time_il_length=1)
+    tx = Transmitter(TxConfig(mode=mode, plp=plp, fec_blocks_per_frame=4,
+                              num_t2_frames=3))
+    ts = random_ts_stream(120, seed=12)
+    iq = tx.modulate(ts)
+    rate = float(STREAM_RATE)
+    freq = np.array([0.0, 2 * np.pi * 2e3 / rate])
+    rows = [impair(iq, ChannelConfig(device_rate=rate, cfo_hz=f, snr_db=30.0,
+                                     seed=50 + c))
+            for c, f in enumerate((0.0, 2e3))]
+    cfg = sharding.ShardedConfig(mode=mode, plp=plp, n_fec_per_frame=4,
+                                 l1_post_cells=tx.l1_pre.l1_post_size)
+    step = rate / (2 * SAMPLE_RATE)
+    out = {}
+    for dev in (DEVICE, "cpu"):
+        rx = sharding.ShardedReceiver(
+            cfg, sharding.make_mesh(2, 2, devices=[dev] * 4))
+        rb = rx.raw_block_for(step)
+        mu = ((rx.n_taps - 1) / 4.0 - 1.0) / (SAMPLE_RATE / rate)
+        bases = rx.host_bases(mu, step, 0.0, freq, rb, n_channels=2)
+        x = np.stack([r[:2 * rb] for r in rows])
+        before = (ldpc.LayeredDecoder.launches,
+                  ldpc.LayeredDecoder.screen_launches)
+        sync()
+        t0 = time.perf_counter()
+        hard, stats = rx.step(x, *bases, freq, step)
+        sync()
+        out[dev] = (hard, stats, ldpc.LayeredDecoder.launches - before[0],
+                    ldpc.LayeredDecoder.screen_launches - before[1],
+                    (time.perf_counter() - t0) * 1e3)
+    hard, stats, launches, screens, ms = out[DEVICE]
+    hard_c = out["cpu"][0]
+    ts_ok = []
+    for c in range(2):
+        p = BBFrameParser()
+        got = np.concatenate([p.parse(hard[c, f, k, :plp.k_bch])
+                              for f in range(hard.shape[1])
+                              for k in range(hard.shape[2])])
+        ts_ok.append(bool(_ts_exact(got, ts)))
+    rec = dict(grid=[2, 2], channels=2, ldpc_failures=int(
+        stats["ldpc_failures"]), bch_dirty=int(stats["bch_dirty"]),
+        launches=launches, screen_launches=screens, step_ms=ms,
+        ts_exact=ts_ok,
+        equal_to_cpu=bool(np.array_equal(hard, hard_c)))
+    report["pod_halo"] = rec
+    log(f"phase 9 contiguous step, (2, 2) grid on one card, 2K: LDPC "
+        f"failures {rec['ldpc_failures']}, BCH-dirty {rec['bch_dirty']}, "
+        f"TS exact {ts_ok}, hard bits equal to the CPU's "
+        f"{rec['equal_to_cpu']}, decoder launches {launches}, "
+        f"{ms:.1f} ms (first call)")
+    if not (rec["ldpc_failures"] == 0 and all(ts_ok) and rec["equal_to_cpu"]
+            and launches == screens == 1):
+        raise AssertionError(f"phase 9 contiguous step: {rec}")
+
+
 def kernel_bounds(plan, w, sweeps, n_syn):
     """Least times (ms) the card could take for the decoder with its screen
     and for the screen alone, from this run's sizes and sweeps: each input
@@ -1159,7 +1640,8 @@ def phase_kernel_table(report, llr):
     source = f"{PKG}/ops/csrc/ldpc_layered.cu"
     recv, strm = report["receive"], report["stream"]
     paths = dict(stream="stream", receive="receive", sfn_receive="sfn",
-                 miso_receive="miso", sfn_stream="sfn_stream")
+                 miso_receive="miso", sfn_stream="sfn_stream", pod="pod",
+                 pod_halo="pod_halo")
 
     def by_path(count):
         return {name: report[key][count] for name, key in paths.items()}
@@ -1222,25 +1704,38 @@ def main(argv=None) -> int:
     from concurrent.futures import ProcessPoolExecutor
     report = {}
     # the 32K signals, made by the port's transmitter in worker processes
-    # (spawned before this process touches the card) beside the builds
+    # (spawned before this process touches the card) beside the builds;
+    # then the pod's captures from the flagship's noise-free frames,
+    # beside phases 4-8
     with ProcessPoolExecutor(
-            3, mp_context=multiprocessing.get_context("spawn")) as pool:
+            4, mp_context=multiprocessing.get_context("spawn")) as pool:
         signals = {name: pool.submit(fn) for name, fn in (
             ("flagship", make_flagship_signal), ("sfn", make_sfn_signal),
             ("miso", make_miso_signal))}
         phase_build(report)
         phase_kernel_parity(report)
-        sig = phase_receive(report, signals["flagship"].result())
+        flagship = signals["flagship"].result()
+        sig = phase_receive(report, flagship)
+        pod_dir = ROOT / "build" / "chip_smoke" / "pod"
+        pod_dir.mkdir(parents=True, exist_ok=True)
+        pod_paths = [str(pod_dir / f"ch{c}_pod_0_{STREAM_RATE}_8.raw")
+                     for c in range(POD_CHANNELS)]
+        pod_caps = [pool.submit(make_pod_capture, flagship[3], c, p)
+                    for c, p in enumerate(pod_paths)]
+        del flagship
         sfn_signal = signals["sfn"].result()
         miso_signal = signals["miso"].result()
-    phase_stream(report, sig)
-    phase_frame_batch(report, "sfn", "6 SFN frame batch", sfn_config,
-                      sfn_signal)
-    del sfn_signal
-    phase_frame_batch(report, "miso", "7 MISO frame batch", miso_config,
-                      miso_signal)
-    del miso_signal
-    phase_sfn_stream(report)
+        phase_stream(report, sig)
+        phase_frame_batch(report, "sfn", "6 SFN frame batch", sfn_config,
+                          sfn_signal)
+        del sfn_signal
+        phase_frame_batch(report, "miso", "7 MISO frame batch", miso_config,
+                          miso_signal)
+        del miso_signal
+        phase_sfn_stream(report)
+        report["pod_capture_s"] = [f.result() for f in pod_caps]
+    phase_pod(report, sig, pod_paths)
+    phase_pod_halo(report)
     rows = phase_kernel_table(report, sig["llr"])
     if args.report is not None:
         args.report.parent.mkdir(parents=True, exist_ok=True)

@@ -9,6 +9,7 @@ Examples:
       --out udp://127.0.0.1:7654
   python -m sdr_receiver_dvb_t2_tpu_torch --input iq.raw --rate 10e6 \
       --format s16 --out ts:out.ts --max-frames 100 --stats 10
+  python -m sdr_receiver_dvb_t2_tpu_torch --pod channels.toml
 """
 from __future__ import annotations
 
@@ -23,8 +24,11 @@ def build_parser() -> argparse.ArgumentParser:
         description="DVB-T2 receiver on an NVIDIA GPU (PyTorch/CUDA): raw "
                     "IQ in, MPEG-TS out.")
     p.add_argument("--pod", metavar="TOML", default=None,
-                   help="multi-channel pod mode: not ported yet (ROADMAP.md "
-                        "section 1 item 15); exits 2")
+                   help="multi-channel pod mode: decode every channel of a "
+                        "TOML config (per-channel inputs/sinks) on a "
+                        "(ch x time) device grid with blind per-channel "
+                        "acquisition, L1-dynamic tracking and relock; see "
+                        "cli.run_pod")
     src = p.add_argument_group("input")
     src.add_argument("--input", required=False,
                      help="raw IQ capture file ('*_<rate>_<8|16|fc>.raw'), "
@@ -161,14 +165,278 @@ def _dump_constellation(rx, path: str):
     print(f"diagnostics written to {path}", file=sys.stderr)
 
 
+def run_pod(args) -> int:
+    """Pod deployment entry: N channels on one device grid.
+
+    The TOML config maps per-channel inputs onto blind acquisition +
+    MultiChannelReceiver with per-channel TS sinks and stats lines::
+
+        rate = 10e6          # device sample rate (Hz); or per channel
+        format = "u8"        # raw format (u8/s8/s16/f32) for files
+        mesh = [4, 1]        # optional [ch, time]; default: auto
+        track = true         # close CFO/SRO loops per channel
+        track_l1 = true      # per-step dynamic-L1 tracking
+        relock = true        # partial acquisition + mid-stream relock
+        max_steps = 0        # 0 = until the captures run out
+        plp = 0              # PLP index, or "all" (per-PLP sinks)
+        live = false         # stream via ChannelStore (bounded memory);
+                             # auto-on when any input is udp://
+        acquire_samples = 3000000   # blind-acquisition head (live mode)
+        threaded_ingest = true      # per-channel ingest threads (live):
+                                    # a silent antenna goes through the
+                                    # relock path instead of stalling
+        ingest_timeout = 2.0        # s to wait for a live channel's data
+                                    # before zero-filling its window
+        monitor = 0                 # SECS: the per-channel pod panel
+        stats = 5.0                 # stats line interval, s (0 = off)
+
+        [[channel]]
+        input = "ch0_10000000_8.raw"
+        out = "udp://127.0.0.1:7654"
+
+        [[channel]]
+        input = "udp://:4950"       # live daemon feed (needs rate/format)
+        out = "ch1.ts"
+
+    The pod runs on the visible CUDA devices (the default grid is one row
+    a card, as many as divide the channel count) unless ``--cpu`` is
+    given.  Live mode pulls each channel chunk-wise through a
+    ``pod.ChannelStore`` (recycled-granule pool, consumed raw trimmed —
+    a 24/7 pod holds only a bounded tail even on endless feeds), runs
+    blind acquisition on a recorded head of each channel, and streams
+    from absolute positions.  A channel that delivered too little for
+    its head is acquired on zeros, fails, and streams dark until it
+    relocks; only when no channel delivered enough does the pod stop.
+    udp:// inputs use the daemon's seq-framed datagrams so drops are
+    zero-filled, not time-shifting.
+    """
+    import os
+    import tomllib
+    import numpy as np
+    import torch
+    from . import resolve_device
+    from .io import sources, sinks
+    from .io.native import make_bb_parser
+    from .parallel import acquire, pod, sharding
+    from .runtime.stream import raw_to_complex_np
+
+    with open(args.pod, "rb") as f:
+        cfg = tomllib.load(f)
+    chans = cfg.get("channel", [])
+    if not chans:
+        print("pod config has no [[channel]] entries", file=sys.stderr)
+        return 2
+    device = resolve_device("cpu" if args.cpu else None)
+    C = len(chans)
+    rate = float(cfg.get("rate", 0)) or None
+    fmt = cfg.get("format")
+
+    live = bool(cfg.get("live", False)) or any(
+        str(ch["input"]).startswith("udp://") for ch in chans)
+    store = None
+    srcs: list = []
+    if live:
+        # LIVE ingest: per-channel chunked readers through a pooled
+        # ChannelStore — bounded memory on endless feeds; blind
+        # acquisition runs on a recorded head kept in the store
+        chunk = 65536
+
+        class _PoolReader:
+            """Chunked read_into adapter: raw ints from an io.sources
+            reader are scale-converted STRAIGHT into borrowed pool
+            space (ChannelStore.ensure) — live ingest costs exactly one
+            write pass per sample."""
+
+            def __init__(self, src):
+                self.src, self.fmt = src, src.info.fmt
+
+            def read_into(self, buf):
+                blk = self.src.read(min(len(buf), chunk))
+                if blk is None or len(blk) == 0:
+                    return None
+                if blk.dtype == np.complex64:
+                    buf[:len(blk)] = blk
+                    return len(blk)
+                return raw_to_complex_np(blk, self.fmt, out=buf)
+
+        readers = []
+        for ch in chans:
+            inp = str(ch["input"])
+            if inp.startswith("udp://"):
+                if rate is None:
+                    print("udp:// pod channels need rate = in the TOML",
+                          file=sys.stderr)
+                    return 2
+                host, _, port = inp[6:].rpartition(":")
+                src = sources.UdpIqSource(int(port), rate, fmt or "s16",
+                                          host=host or "0.0.0.0", seq=True)
+            else:
+                src = sources.RawFileSource(inp, sample_rate=rate, fmt=fmt)
+            rate = src.info.sample_rate
+            srcs.append(src)
+            readers.append(_PoolReader(src))
+        if bool(cfg.get("threaded_ingest", True)):
+            # per-channel ingest threads: one silent antenna must not
+            # stall (or terminate) the other channels — its blocking
+            # reads are absorbed and the shortfall goes through the
+            # dead-channel relock machinery instead
+            store = pod.ThreadedIngest(
+                srcs, fmts=[s.info.fmt for s in srcs],
+                eof_on_none=[not str(ch["input"]).startswith("udp://")
+                             for ch in chans],
+                timeout=float(cfg.get("ingest_timeout", 2.0)))
+        else:
+            store = pod.ChannelStore(C, readers=readers)
+        acq_n = int(cfg.get("acquire_samples", 3_000_000))
+        for c in range(C):
+            store.ensure(c, acq_n)           # best effort on live feeds
+        # each channel's head is what its reader delivered (a short
+        # capture is not padded into a longer one's acquisition); a
+        # channel that delivered too little is zero-filled, fails its
+        # acquisition and streams dark
+        heads = [min(acq_n, store.end(c)) for c in range(C)]
+        if max(heads) < 200_000:
+            print("not enough samples for blind acquisition",
+                  file=sys.stderr)
+            return 1
+        raw = np.zeros((C, max(heads)), np.complex64)
+        for c in range(C):
+            store.window_into(c, 0, heads[c], raw[c])
+    else:
+        # recorded captures loaded whole (simplest path for short files)
+        rows = []
+        for ch in chans:
+            src = sources.RawFileSource(ch["input"], sample_rate=rate,
+                                        fmt=fmt)
+            item = {"u8": 1, "s8": 1, "s16": 2, "f32": 4}[src.info.fmt]
+            n_samp = os.path.getsize(ch["input"]) // (2 * item)
+            blk = src.read(n_samp)
+            src.close()
+            if blk is None or n_samp == 0:
+                print(f"empty capture: {ch['input']}", file=sys.stderr)
+                return 2
+            rows.append(blk if blk.dtype == np.complex64
+                        else raw_to_complex_np(blk, src.info.fmt))
+            rate = src.info.sample_rate
+        n = min(len(r) for r in rows)
+        raw = np.stack([r[:n] for r in rows])
+
+    relock = bool(cfg.get("relock", True))
+    plp = cfg.get("plp", 0)
+    all_plps = plp == "all"
+    lock = acquire.blind_acquire(
+        raw, rate, plp_index=0 if all_plps else int(plp),
+        all_plps=all_plps, allow_partial=relock, device=device)
+    if lock is None:
+        print("pod acquisition failed on every channel", file=sys.stderr)
+        return 1
+    for c in range(C):
+        state = ("locked" if lock.locked[c]
+                 else "MISMATCHED MUX" if c in lock.mismatched else "dark")
+        print(f"ch{c}: {chans[c]['input']} -> {state}", file=sys.stderr)
+    m = lock.cfg.mode
+    print(f"pod config: {m.fft_size//1024}K FFT GI {m.guard.name} "
+          f"{lock.cfg.plp.constellation.name} r="
+          f"{lock.cfg.plp.code_rate.name}; {C} channels; device: "
+          f"{device.type}", file=sys.stderr)
+
+    mesh_shape = cfg.get("mesh")
+    if mesh_shape:
+        n_ch, n_time = int(mesh_shape[0]), int(mesh_shape[1])
+    else:
+        nd = torch.cuda.device_count() if device.type == "cuda" else 1
+        n_ch = max(d for d in range(1, min(C, nd) + 1) if C % d == 0)
+        n_time = 1
+    try:
+        mesh = sharding.make_mesh(
+            n_ch, n_time,
+            devices=None if device.type == "cuda"
+            else [device] * (n_ch * n_time))
+    except ValueError as e:
+        print(f"pod mesh {[n_ch, n_time]}: {e}", file=sys.stderr)
+        return 2
+    rx = pod.MultiChannelReceiver(lock.cfg, mesh)
+
+    out_specs = [ch.get("out", f"udp://127.0.0.1:{7654 + c}")
+                 for c, ch in enumerate(chans)]
+    # single PLP: one sink per channel from its out spec.  plp = "all":
+    # every PLP gets its own per-channel sink from the same factory the
+    # single-channel CLI uses (UDP port+i / file -plp<id> suffix)
+    out_sinks: dict = {}                     # (channel, plp ordinal) -> sink
+    parsers: dict = {}
+
+    def sink_for(c: int, i: int, plp_id: int):
+        key = (c, i)
+        if key not in out_sinks:
+            out_sinks[key] = (sinks.make_sink(out_specs[c]) if not all_plps
+                              else _plp_sink_factory(out_specs[c])(i, plp_id))
+            parsers[key] = make_bb_parser()
+        return out_sinks[key], parsers[key]
+
+    max_steps = int(cfg.get("max_steps", 0)) or None
+    if live:
+        stream_src, mu0 = store, lock.pos0 + lock.mu0   # ABSOLUTE
+    else:
+        stream_src, mu0 = lock.aligned(raw), lock.mu0
+    pkts = np.zeros(C, np.int64)
+    stats_s = float(cfg.get("stats", 5.0))
+    t_last = time.monotonic()
+    n_steps = 0
+    mon = None
+    if cfg.get("monitor"):
+        from .runtime.monitor import PodMonitor
+        mon = PodMonitor(interval=float(cfg["monitor"]))
+    try:
+        for hard, stats in rx.stream(
+                stream_src, mu0, lock.step, freq=lock.freq,
+                max_steps=max_steps, track=bool(cfg.get("track", True)),
+                track_l1=bool(cfg.get("track_l1", True)), relock=relock,
+                locked=lock.locked, frame_idx0=lock.frame_idx0):
+            if mon is not None:
+                mon.maybe_render(stats, pkts, n_steps)
+            for e in stats["events"]:
+                print(f"event: {e}", file=sys.stderr)
+            for i, res in enumerate(stats["plp_results"]):
+                # BB frames with every BCH-dirty codeword corrected (or
+                # dropped where the BCH could not), packed 8x
+                bb = res.bb_bytes
+                kb = res.state.plp.k_bch // 8
+                for c in range(C):
+                    if not stats["alive"][c]:
+                        continue
+                    sink, parser = sink_for(c, i, res.state.plp.plp_id)
+                    ts = parser.parse_batch(
+                        bb[c].reshape(-1, bb.shape[-1])[:, :kb])
+                    if len(ts):
+                        sink.write(ts)
+                        pkts[c] += len(ts) // 188
+            n_steps += 1
+            if stats_s and time.monotonic() - t_last >= stats_s:
+                line = " ".join(
+                    f"ch{c}:{'up' if stats['alive'][c] else 'DOWN'}"
+                    f"/{pkts[c]}pkt/{stats['bch_dirty_ch'][c]}dirty"
+                    for c in range(C))
+                print(f"step {n_steps} snr={stats['snr_db']:.1f}dB {line}",
+                      file=sys.stderr)
+                t_last = time.monotonic()
+    finally:
+        for s in out_sinks.values():
+            s.close()
+        if hasattr(store, "close"):
+            store.close()
+        for s in srcs:
+            s.close()
+    print(f"done: {n_steps} steps, per-channel TS packets: "
+          f"{pkts.tolist()}", file=sys.stderr)
+    return 0
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.pod is not None:
-        print("--pod: the multi-channel pod is not ported yet (ROADMAP.md "
-              "section 1 item 15)", file=sys.stderr)
-        return 2
+        return run_pod(args)
     if args.input is None:
-        print("--input is required", file=sys.stderr)
+        print("--input is required (or --pod)", file=sys.stderr)
         return 2
 
     from .io import sources, sinks

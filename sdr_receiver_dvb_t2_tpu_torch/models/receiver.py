@@ -102,6 +102,73 @@ def plan_from_numpy(arrays: dict, device) -> dict:
     return rx_chain.consts_from_arrays(arrays, resolve_device(device))
 
 
+def host_copies(out: dict, side) -> tuple:
+    """Start the device-to-host copies of ``out``'s tensors without
+    blocking: on ``side`` (a CUDA stream, after the work already queued on
+    the current stream) into pinned host buffers.  Returns (host tensors,
+    an event to wait for, or None where ``side`` is None and the tensors
+    are on the CPU already)."""
+    if side is None:
+        return out, None
+    main = torch.cuda.current_stream(side.device)
+    side.wait_stream(main)
+    host = {}
+    with torch.cuda.stream(side):
+        for k, v in out.items():
+            v.record_stream(side)
+            host[k] = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+            host[k].copy_(v, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(side)
+    return host, done
+
+
+@functools.lru_cache(maxsize=None)
+def scrambler_bytes(k_bch: int) -> np.ndarray:
+    """The BB scrambler's sequence over a k_bch-bit frame, as bytes."""
+    from ..params import prbs
+    return np.packbits(prbs.bb_scrambler(k_bch))
+
+
+@functools.lru_cache(maxsize=None)
+def dropped_frame(k_bch: int) -> np.ndarray:
+    """A scrambled BB frame whose header fails its CRC-8, so that a parser
+    drops it and resynchronises as after any damaged header: what the
+    parser gets in place of a codeword the BCH could not correct."""
+    frame = np.zeros(k_bch // 8, np.uint8)
+    # after nine zero bytes a CRC byte of 0x00 checks as NM and 0x01 as
+    # HEM; 0x02 checks as neither
+    frame[9] = 0x02
+    out = frame ^ scrambler_bytes(k_bch)
+    out.flags.writeable = False
+    return out
+
+
+def correct_bb_frames(packed: np.ndarray, clean: np.ndarray, plp,
+                      attempt=None) -> np.ndarray:
+    """Correct in place the packed codewords [n, n_bch/8] that the BCH
+    screen flagged (``clean`` False): the k_bch/8 bytes of the BB frame
+    become the host BCH's correction, or a frame the parser drops where
+    the BCH cannot correct the codeword or ``attempt`` [n] is False.
+    Returns the bits corrected a codeword: 0 where clean, -1 where
+    dropped."""
+    corrected = np.zeros(len(packed), np.int64)
+    kb = plp.k_bch // 8
+    for i in np.nonzero(~clean)[0]:
+        nerr = -1
+        if attempt is None or attempt[i]:
+            bits = np.unpackbits(packed[i])[:plp.n_bch]
+            fixed, nerr = bch_ops.correct_host(bits, plp)
+        corrected[i] = nerr
+        # a codeword the BCH could not correct reaches the parser as a
+        # frame it drops, not as its own bytes: those pass the header's
+        # CRC-8 now and then and come out as TS packets that were never
+        # sent (the JAX receiver passes them on, receiver.py:305-309)
+        packed[i, :kb] = (np.packbits(fixed) if nerr >= 0
+                          else dropped_frame(plp.k_bch))
+    return corrected
+
+
 class TorchReceiver:
     """Steady-state frame-batch receiver for one PLP.
 
@@ -223,21 +290,7 @@ class TorchReceiver:
         packed = bch_ops.pack_bits(hard[:, :self.plp.n_bch])
         out = dict(packed=packed, clean=clean, ok=ok, iters=iters,
                    snr_db=snr, **diags)
-        if self._copy_stream is None:
-            return out, None
-        main = torch.cuda.current_stream(self.device)
-        side = self._copy_stream
-        side.wait_stream(main)
-        host = {}
-        with torch.cuda.stream(side):
-            for k, v in out.items():
-                v.record_stream(side)
-                host[k] = torch.empty(v.shape, dtype=v.dtype,
-                                      pin_memory=True)
-                host[k].copy_(v, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record(side)
-        return host, done
+        return host_copies(out, self._copy_stream)
 
     def finish(self, pending) -> FrameBatchResult:
         """Host half: wait for the copies and assemble TS bytes."""
@@ -248,20 +301,9 @@ class TorchReceiver:
         packed_np = out.pop("packed")                     # [n_cw, n_bch/8]
         clean_np = out.pop("clean")
         ok, iters = out.pop("ok"), out.pop("iters")
-        n_cw = packed_np.shape[0]
-        corrected = np.zeros(n_cw, dtype=np.int64)
-        kb = self.plp.k_bch // 8
-        frames_bytes = np.ascontiguousarray(packed_np[:, :kb])
-        for i in np.nonzero(~clean_np)[0]:
-            bits = np.unpackbits(packed_np[i])[:self.plp.n_bch]
-            fixed, nerr = bch_ops.correct_host(bits, self.plp)
-            corrected[i] = nerr
-            # a codeword the BCH could not correct reaches the parser as a
-            # frame it drops, not as its own bytes: those pass the header's
-            # CRC-8 now and then and come out as TS packets that were never
-            # sent (the JAX receiver passes them on, receiver.py:305-309)
-            frames_bytes[i] = (np.packbits(fixed) if nerr >= 0
-                               else self._dropped_frame)
+        corrected = correct_bb_frames(packed_np, clean_np, self.plp)
+        frames_bytes = np.ascontiguousarray(
+            packed_np[:, :self.plp.k_bch // 8])
         ts_bytes = self.bb.parse_batch(frames_bytes)
         return FrameBatchResult(
             ts_bytes=ts_bytes,
@@ -274,27 +316,12 @@ class TorchReceiver:
             padding=self._collect_padding(frames_bytes),
         )
 
-    @functools.cached_property
-    def _dropped_frame(self) -> np.ndarray:
-        """A scrambled BB frame whose header fails its CRC-8, so that a
-        parser drops it and resynchronises as after any damaged header."""
-        frame = np.zeros(self.plp.k_bch // 8, np.uint8)
-        # after nine zero bytes a CRC byte of 0x00 checks as NM and 0x01
-        # as HEM; 0x02 checks as neither
-        frame[9] = 0x02
-        return frame ^ self._scrambler_bytes
-
-    @functools.cached_property
-    def _scrambler_bytes(self) -> np.ndarray:
-        from ..params import prbs
-        return np.packbits(prbs.bb_scrambler(self.plp.k_bch))
-
     def _collect_padding(self, frames_bytes: np.ndarray) -> list:
         """Padding-field bits of each interleaving frame's first BB frame
         (where in-band signalling rides, EN 302 755 clause 5.2.3).  Only
         frames whose DFL leaves padding are descrambled."""
         out = []
-        scr = self._scrambler_bytes
+        scr = scrambler_bytes(self.plp.k_bch)
         kb = self.plp.k_bch // 8
         for j in range(0, len(frames_bytes), self.cfg.n_fec_per_frame):
             hdr = frames_bytes[j, :10] ^ scr[:10]

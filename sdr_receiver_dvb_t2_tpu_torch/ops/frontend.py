@@ -133,20 +133,30 @@ def _cexp(ph: torch.Tensor) -> torch.Tensor:
 # NCO derotation (reference: dvbt2_demodulator.cpp:165-174)
 # ---------------------------------------------------------------------------
 
-def nco_derotate(x: torch.Tensor, phase0, freq):
-    """y[n] = x[n] * exp(-j(phase0 + freq*n)); returns (y, phase_end).
+def _rows(v, x: torch.Tensor) -> torch.Tensor:
+    """A per-row scalar (python, numpy or tensor; one value or one per row
+    of ``x``) as float32 on x's device, shaped to broadcast over x's last
+    axis."""
+    v = _f32(v, x.device)
+    return v[..., None] if v.dim() else v
 
-    ``freq`` is radians/sample, float32 like the ramp.  The phase ramp is
-    closed-form (no recurrence), so the whole block vectorizes; phase_end
-    is carried to the next block by the host.
+
+def nco_derotate(x: torch.Tensor, phase0, freq):
+    """y[..., n] = x[..., n] * exp(-j(phase0 + freq*n)); returns
+    (y, phase_end).
+
+    ``x`` is one stream [N] or rows [R, N]; ``phase0`` and ``freq`` are
+    scalars or one per row.  ``freq`` is radians/sample, float32 like the
+    ramp.  The phase ramp is closed-form (no recurrence), so the whole
+    block vectorizes; phase_end is carried to the next block by the host.
     """
-    phase0, freq = _f32(phase0, x.device), _f32(freq, x.device)
+    phase0, freq = _rows(phase0, x), _rows(freq, x)
     n = torch.arange(x.shape[-1], dtype=torch.float32, device=x.device)
     ph = phase0 + freq * n
     y = x * _cexp(-ph)
     phase_end = torch.remainder(phase0 + freq * x.shape[-1],
                                 np.float32(2 * np.pi))
-    return y, phase_end
+    return y, phase_end.squeeze(-1) if phase_end.dim() else phase_end
 
 
 def spur_notch(x: torch.Tensor, phase0, omega, a_re, a_im):
@@ -242,8 +252,9 @@ _FARROW_CHUNK = 1024
 
 
 def farrow_positions(mu0, step_hi, step_lo, n_out: int, device=None):
-    """Farrow input positions p_i = mu0 + step*i as (idx int64 [n_out],
-    d float32 [n_out]), with p = idx + d.
+    """Farrow input positions p_i = mu0 + step*i as (idx int64 [..., n_out],
+    d float32 [..., n_out]), with p = idx + d.  ``mu0``, ``step_hi`` and
+    ``step_lo`` are scalars, or [R] for R rows of positions.
 
     Positions are computed per 1024-output chunk from an exact integer
     base plus a small float32 offset, keeping the fractional-delay error
@@ -254,9 +265,9 @@ def farrow_positions(mu0, step_hi, step_lo, n_out: int, device=None):
     if n_out % chunk:
         raise ValueError(f"n_out must be a multiple of {chunk}")
     n_chunks = n_out // chunk
-    mu0 = _f32(mu0, device)
-    step_hi = _f32(step_hi, device)
-    step_lo = _f32(step_lo, device)
+    mu0 = _f32(mu0, device)[..., None]
+    step_hi = _f32(step_hi, device)[..., None]
+    step_lo = _f32(step_lo, device)[..., None]
 
     # exact per-chunk advance: chunk * step_hi is exact in f32 (chunk = 2^10)
     a_hi = chunk * step_hi
@@ -268,10 +279,11 @@ def farrow_positions(mu0, step_hi, step_lo, n_out: int, device=None):
     frac_base = g - torch.floor(g)
 
     i = torch.arange(chunk, dtype=torch.float32, device=device)
-    p = frac_base[:, None] + i[None, :] * step_hi      # [C, chunk], < ~1200
+    # [..., n_chunks, chunk], each < ~1200
+    p = frac_base[..., None] + i * step_hi[..., None]
     pf = torch.floor(p)
-    idx = (idx_base[:, None] + pf.to(torch.int32)).reshape(-1)
-    d = (p - pf).reshape(-1)
+    idx = (idx_base[..., None] + pf.to(torch.int32)).flatten(-2)
+    d = (p - pf).flatten(-2)
     return idx.to(torch.int64), d
 
 
@@ -280,16 +292,17 @@ def farrow_resample(x: torch.Tensor, mu0, step_hi, step_lo,
     """Cubic (4-tap Lagrange) fractional resampler with static output size.
 
     Output i interpolates input position p_i = mu0 + step*i with
-    step = step_hi + step_lo (see :func:`split_step`).  The caller
-    guarantees ceil(mu0 + step*(n_out-1)) + 2 < len(x) and carries the
-    fractional phase between blocks.  One gather + polynomial, no
-    recurrence anywhere.
+    step = step_hi + step_lo (see :func:`split_step`).  ``x`` is one stream
+    [N] or rows [R, N] with per-row ``mu0``, ``step_hi``, ``step_lo``
+    (each [R]).  The caller guarantees ceil(mu0 + step*(n_out-1)) + 2 <
+    N and carries the fractional phase between blocks.  One gather over
+    all rows + polynomial, no recurrence anywhere.
     """
     idx, d = farrow_positions(mu0, step_hi, step_lo, n_out, x.device)
     last = x.shape[-1] - 1
 
     def tap(o):
-        return x[torch.clamp(idx + o, 0, last)]
+        return torch.gather(x, -1, torch.clamp(idx + o, 0, last))
 
     dm1, dp1, dm2 = d - 1.0, d + 1.0, d - 2.0
     cm1 = -d * dm1 * dm2 / 6.0
@@ -323,8 +336,9 @@ def halfband_taps(n_taps: int = 29, beta: float = 7.0) -> tuple:
 
 
 def _conv_f32(xp: torch.Tensor, taps: torch.Tensor, stride: int):
-    """FIR of a complex stream as one conv1d over its real and imaginary
-    parts (two channels, ``groups=2``), in float32.
+    """FIR of complex streams as one grouped conv1d over their real and
+    imaginary parts: a stream [L] is two channels (``groups=2``), rows
+    [R, L] are 2R channels (``groups=2R``), all in float32.
 
     ``conv1d`` correlates, so the taps go in reversed (a true convolution,
     as the JAX front end passes ``taps[::-1]`` to ``conv_general_dilated``).
@@ -332,27 +346,32 @@ def _conv_f32(xp: torch.Tensor, taps: torch.Tensor, stride: int):
     default; the flags below hold this call to float32 and restore the
     caller's setting afterwards.
     """
-    ri = torch.stack([xp.real, xp.imag])[None]          # [1, 2, L]
-    k = taps.flip(0).to(torch.float32)[None, None].expand(2, 1, -1)
+    lead = xp.shape[:-1]
+    ri = torch.stack([xp.real, xp.imag], dim=-2).reshape(1, -1, xp.shape[-1])
+    ch = ri.shape[1]                                  # 2R
+    k = taps.flip(0).to(torch.float32)[None, None].expand(ch, 1, -1)
     cudnn = torch.backends.cudnn
     with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
                      deterministic=cudnn.deterministic, allow_tf32=False):
-        y = F.conv1d(ri, k, stride=stride, groups=2)[0]
-    return torch.complex(y[0], y[1])
+        y = F.conv1d(ri, k, stride=stride, groups=ch)[0]
+    y = y.reshape(*lead, 2, -1)
+    return torch.complex(y[..., 0, :], y[..., 1, :])
 
 
 def upsample2(x: torch.Tensor, history: torch.Tensor, taps: torch.Tensor):
-    """Zero-stuff x2 + half-band filter; returns (y [2N], new_history).
+    """Zero-stuff x2 + half-band filter; returns (y [..., 2N],
+    new_history).
 
-    history: [len(taps)-1] tail of the previous block in the UPSAMPLED
-    domain (carry ``y``'s source, i.e. the zero-stuffed stream).
+    ``x`` is one stream [N] or rows [R, N]; history: [..., len(taps)-1]
+    tail of the previous block in the UPSAMPLED domain (carry ``y``'s
+    source, i.e. the zero-stuffed stream).
     """
     n = x.shape[-1]
     t = taps.shape[0]
-    up = torch.zeros(2 * n, dtype=x.dtype, device=x.device)
-    up[::2] = x
-    xp = torch.cat([history, up])
-    return _conv_f32(xp, taps, 1), xp[-(t - 1):]
+    up = torch.zeros(*x.shape[:-1], 2 * n, dtype=x.dtype, device=x.device)
+    up[..., ::2] = x
+    xp = torch.cat([history, up], dim=-1)
+    return _conv_f32(xp, taps, 1), xp[..., -(t - 1):]
 
 
 # ---------------------------------------------------------------------------
@@ -394,12 +413,12 @@ def fir_decimate2(x: torch.Tensor, history: torch.Tensor,
                   taps: torch.Tensor):
     """Overlap-save FIR + decimate by 2.
 
-    x: [N] complex (N even); history: [len(taps)-1] tail of the previous
-    block.  Returns (y [N//2], new_history).
+    x: [N] or rows [R, N] complex (N even); history: [..., len(taps)-1]
+    tail of the previous block.  Returns (y [..., N//2], new_history).
     """
     t = taps.shape[0]
-    xp = torch.cat([history, x])
-    return _conv_f32(xp, taps, 2), xp[-(t - 1):]
+    xp = torch.cat([history, x], dim=-1)
+    return _conv_f32(xp, taps, 2), xp[..., -(t - 1):]
 
 
 # ---------------------------------------------------------------------------

@@ -12,8 +12,8 @@ graphical render.
 
 All rendering is pure string building over NumPy arrays (no curses / no
 plotting dependency); the only device work per refresh is one
-single-frame ``equalized_cells`` plane.  (The multi-channel pod's panel
-comes with the pod, which is not ported yet.)
+single-frame ``equalized_cells`` plane.  The multi-channel pod has its
+own panel (``PodMonitor``, ``monitor = SECS`` in a ``--pod`` TOML).
 """
 from __future__ import annotations
 
@@ -185,3 +185,59 @@ class Monitor:
                     f"fec={p.plp_fec_type} num_blocks={nb}"
                     + (" <- decoding" if p.id == rx.rx.plp.plp_id else ""))
         return "\n".join(lines), arrays
+
+
+class PodMonitor:
+    """Per-channel pod panel for ``--pod`` (monitor = SECS in the TOML):
+    alive/snr/packets/dirty/relock columns per channel plus a pod-wide SNR
+    sparkline over time."""
+
+    def __init__(self, interval: float = 2.0, out=None,
+                 clear: bool | None = None):
+        self.interval = float(interval)
+        self.out = out if out is not None else sys.stderr
+        # -inf, so that the first call renders whatever the host's uptime
+        # (time.monotonic() may be below ``interval`` on a fresh host)
+        self._t_last = -float("inf")
+        self._t0 = time.monotonic()
+        self.snr_history: list[float] = []
+        self.clear = (clear if clear is not None
+                      else bool(getattr(self.out, "isatty", lambda: False)()))
+        self.refreshes = 0
+
+    def maybe_render(self, stats: dict, pkts, n_steps: int) -> bool:
+        self.snr_history.append(float(stats["snr_db"]))
+        now = time.monotonic()
+        if now - self._t_last < self.interval:
+            return False
+        self._t_last = now
+        if self.clear:
+            self.out.write("\x1b[H\x1b[2J")
+        self.out.write(self.render(stats, pkts, n_steps) + "\n")
+        self.out.flush()
+        self.refreshes += 1
+        return True
+
+    def render(self, stats: dict, pkts, n_steps: int) -> str:
+        t = time.monotonic() - self._t0
+        alive = np.asarray(stats["alive"])
+        lines = [
+            f"── dvbt2-rx pod monitor ── t={t:6.1f}s  "
+            f"step={n_steps}  alive={int(alive.sum())}/{len(alive)}  "
+            f"snr={stats['snr_db']:5.1f} dB",
+            "   pod snr  " + sparkline(
+                np.asarray(self.snr_history[-72:]), 72),
+            "   ch state    snr_dB   ts_pkts  bch_dirty  relock_fail",
+        ]
+        snr_ch = np.asarray(stats["snr_db_ch"], np.float64)
+        dirty = np.asarray(stats["bch_dirty_ch"])
+        rfail = np.asarray(stats.get("relock_fail",
+                                     np.zeros(len(alive), np.int64)))
+        for c in range(len(alive)):
+            lines.append(
+                f"   {c:2d} {'up  ' if alive[c] else 'DOWN'}  "
+                f"{float(snr_ch[c]):8.1f}  {int(pkts[c]):8d}  "
+                f"{int(dirty[c]):9d}  {int(rfail[c]):11d}")
+        for e in stats["events"]:
+            lines.append(f"   event: {e}")
+        return "\n".join(lines)

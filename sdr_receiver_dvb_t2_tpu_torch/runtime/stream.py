@@ -51,6 +51,35 @@ from .diagnostics import LdpcStats
 UPSAMPLE = 2.0                      # Farrow output rate / elementary rate
 
 
+def raw_to_complex_np(block: np.ndarray, fmt: str, out=None):
+    """Host-side twin of ops/frontend.raw_to_iq (same scaling), for the
+    pod's host stores.
+
+    Interleaved I/Q ints -> complex64 in ONE scaled write pass: a
+    complex64 array's memory IS interleaved float32 (re, im) pairs, so
+    the conversion writes straight into the destination's float32 view
+    (no deinterleave, no temporaries).  With ``out=`` (complex64, at
+    least len(block)//2 samples — e.g. pod.ChannelStore.borrow space)
+    the samples land in place and the count written is returned;
+    otherwise a fresh array is returned.
+    """
+    n = len(block) // 2
+    dst = np.empty(n, np.complex64) if out is None else out[:n]
+    v = dst.view(np.float32)
+    if fmt == "u8":
+        np.subtract(block[:2 * n], np.float32(127.5), out=v)
+        v *= np.float32(1.0 / 128.0)
+    elif fmt == "s8":
+        np.multiply(block[:2 * n], np.float32(1.0 / 128.0), out=v)
+    elif fmt == "s16":
+        np.multiply(block[:2 * n], np.float32(1.0 / 32768.0), out=v)
+    elif fmt == "f32":
+        v[:] = block[:2 * n]
+    else:
+        raise ValueError(f"unknown IQ format {fmt!r}")
+    return dst if out is None else n
+
+
 @dataclasses.dataclass
 class StreamConfig:
     fir_preset: str = "medium"

@@ -175,3 +175,80 @@ def ldpc_case(name):
 # B8 / B9: the T2-Lite-only rate-1/3 and 2/5 tables (annex I)
 LDPC_CASES = ["SHORT_C1_2", "SHORT_C2_3", "TINY_UNIFORM_T", "BCH", "TRIALS",
               "B8", "B9"]
+
+
+# ---------------------------------------------------------------------------
+# the multi-channel pod (tests/test_torch_pod_*.py): the JAX pod tests'
+# 2K GI 1/8 PP7, rotated QAM16 SHORT r1/2, 4 FEC blocks a frame, 10 Msps
+# ---------------------------------------------------------------------------
+POD_MODE = dict(fft_mode="FFT_2K", guard="G1_8", pilot_pattern="PP7",
+                extended_carriers=False, n_data_symbols=30)
+POD_PLP = dict(constellation="QAM16", code_rate="C1_2", fec_frame="SHORT",
+               rotation=True, time_il_length=1)
+POD_RATE = 10_000_000
+
+
+def pod_tx(n_frames, seed, plp=None, **tx_kw):
+    """(IQ, TS, transmitter) of the JAX package's transmitter in the pod
+    mode: 4 FEC blocks a frame unless tx_kw says otherwise, TS enough for
+    n_frames + 1."""
+    from sdr_receiver_dvb_t2_tpu.models.transmitter import (
+        Transmitter, TxConfig, random_ts_stream)
+    jmode, _ = mode_pair(POD_MODE)
+    jplp = plp if plp is not None else plp_pair(POD_PLP)[0]
+    tx_kw.setdefault("fec_blocks_per_frame", 4)
+    tx = Transmitter(TxConfig(mode=jmode, plp=jplp, num_t2_frames=n_frames,
+                              **tx_kw))
+    ts = random_ts_stream((n_frames + 1) * tx_kw["fec_blocks_per_frame"]
+                          * (jplp.k_bch // 8 - 10) // 188, seed=seed)
+    return tx.modulate(ts), ts, tx
+
+
+def pod_channels(iq, n_ch, offs, snr_db=30.0, cfo_hz=0.0, seed=3,
+                 tail=40_000):
+    """tests/test_pod_parity.py's ``_channels``: TX IQ -> [C, N] impaired
+    10 Msps capture, each channel the same signal behind its own
+    noise-only lead of offs[c] samples (acquisition finds it blind)."""
+    from sdr_receiver_dvb_t2_tpu.models.channel import ChannelConfig, impair
+    dev = impair(iq, ChannelConfig(device_rate=POD_RATE, snr_db=snr_db,
+                                   cfo_hz=cfo_hz, seed=seed))
+    need = len(dev) + max(offs) + tail
+    rng = np.random.default_rng(17)
+    pwr = np.sqrt(np.mean(np.abs(dev) ** 2) / 400.0)
+    raw = (rng.standard_normal((n_ch, need))
+           + 1j * rng.standard_normal((n_ch, need))
+           ).astype(np.complex64) * pwr
+    for c in range(n_ch):
+        raw[c, offs[c]:offs[c] + len(dev)] += dev
+    return raw
+
+
+def cpu_mesh(n_ch, n_time):
+    """The port's device grid on the CPU, one device listed n_ch * n_time
+    times (the JAX tests run the same shape on virtual CPU devices)."""
+    from sdr_receiver_dvb_t2_tpu_torch.parallel import sharding
+    return sharding.make_mesh(n_ch, n_time, devices=["cpu"] * (n_ch * n_time))
+
+
+def collect_ts(parsers, hard, k_bch, out):
+    """Append each channel's TS bytes of one step's hard bits
+    [C, F, n_fec, n_bch] to out[c]."""
+    for c in range(hard.shape[0]):
+        for f in range(hard.shape[1]):
+            for k in range(hard.shape[2]):
+                out[c].append(parsers[c].parse(
+                    np.asarray(hard[c, f, k, :k_bch], np.uint8)))
+
+
+def assert_ts_match(got: bytes, sync: bytes, min_bytes: int, what: str,
+                    prefix_only: bool = False):
+    """``got`` is a run of the transmitted ``sync`` of at least min_bytes
+    (only its first min_bytes with prefix_only, e.g. up to a mux
+    reconfiguration)."""
+    at = sync.find(got[:376])
+    assert at >= 0, f"{what}: recovered TS not in transmitted stream"
+    n = min(len(got), len(sync) - at)
+    assert n >= min_bytes, (what, n)
+    if prefix_only:
+        n = min_bytes
+    assert got[:n] == sync[at:at + n], what

@@ -64,18 +64,27 @@ def test_cli_without_cpu_needs_a_card(capture, tmp_path):
         cli.main(["--input", capture[0], "--out", str(tmp_path / "o.ts")])
 
 
+def _empty_pod_toml(tmp_path):
+    """A pod config that names no channel."""
+    path = tmp_path / "pod.toml"
+    path.write_text("rate = 10e6\nrelock = true\n")
+    return str(path)
+
+
 @pytest.mark.parametrize("argv,message", [
-    (["--pod", "pod.toml"], "item 15"),
+    (["--pod", None], "no [[channel]] entries"),
     ([], "--input is required"),
     (["--input", "udp://:4950"], "--rate is required"),
 ])
-def test_cli_refusals_exit_2(argv, message, capsys):
+def test_cli_refusals_exit_2(argv, message, capsys, tmp_path):
+    argv = [_empty_pod_toml(tmp_path) if a is None else a for a in argv]
     assert cli.main(argv + ["--cpu"]) == 2
     assert message in capsys.readouterr().err
 
 
-def test_module_entry_point():
+def test_module_entry_point(tmp_path):
     proc = subprocess.run(
         [sys.executable, "-m", "sdr_receiver_dvb_t2_tpu_torch", "--pod",
-         "x.toml"], cwd=ROOT, capture_output=True, text=True, timeout=120)
-    assert proc.returncode == 2 and "not ported yet" in proc.stderr
+         _empty_pod_toml(tmp_path)], cwd=ROOT, capture_output=True,
+        text=True, timeout=120)
+    assert proc.returncode == 2 and "no [[channel]] entries" in proc.stderr

@@ -339,3 +339,80 @@ def test_sfn_plane_holds_float32_with_tf32_allowed(cuda):
         assert mm.allow_tf32
     finally:
         mm.allow_tf32 = saved
+
+
+# ---------------------------------------------------------------------------
+# the multi-channel pod's step on the card against the CPU
+# ---------------------------------------------------------------------------
+def test_pod_step_cuda_equals_cpu(cuda):
+    """plane_step_windows + fec_step of a (2, 2) grid (two 2K channels,
+    two time shards each, all four shards on the card) against the same
+    step on the CPU, with TF32 allowed for cuDNN and cuBLAS (the
+    process's choice): the front end's convolutions and the banded
+    products hold float32, the planes agree within -80 dB, and the decode
+    is bit-exact with one launch of each kernel."""
+    from sdr_receiver_dvb_t2_tpu_torch.models.channel import (
+        ChannelConfig, impair)
+    from sdr_receiver_dvb_t2_tpu_torch.models.transmitter import (
+        Transmitter, TxConfig, random_ts_stream)
+    from sdr_receiver_dvb_t2_tpu_torch.ops import ldpc
+    from sdr_receiver_dvb_t2_tpu_torch.parallel import sharding
+    from sdr_receiver_dvb_t2_tpu_torch.params.modes import (
+        SAMPLE_RATE, CodeRate, Constellation, FecFrame, FftMode,
+        GuardInterval, PilotPattern, PlpConfig, T2Mode)
+    mode = T2Mode(FftMode.FFT_2K, GuardInterval.G1_8, PilotPattern.PP7,
+                  False, n_data_symbols=30)
+    plp = PlpConfig(constellation=Constellation.QAM16,
+                    code_rate=CodeRate.C1_2, fec_frame=FecFrame.SHORT,
+                    rotation=True, time_il_length=1)
+    tx = Transmitter(TxConfig(mode=mode, plp=plp, fec_blocks_per_frame=4,
+                              num_t2_frames=4))
+    iq = tx.modulate(random_ts_stream(150, seed=8))
+    rate, freq = 10e6, np.array([0.0, 2 * np.pi * 2e3 / 10e6])
+    raw = [impair(iq, ChannelConfig(device_rate=rate, cfo_hz=cfo,
+                                    snr_db=30.0, seed=c))
+           for c, cfo in enumerate((0.0, 2e3))]
+    cfg = sharding.ShardedConfig(mode=mode, plp=plp, n_fec_per_frame=4,
+                                 l1_post_cells=tx.l1_pre.l1_post_size)
+    step = rate / (2 * SAMPLE_RATE)
+    rxs = {d: sharding.ShardedReceiver(
+        cfg, sharding.make_mesh(2, 2, devices=[d] * 4))
+        for d in ("cuda", "cpu")}
+    rx = rxs["cpu"]
+    mu = ((rx.n_taps - 1) / 4.0 - 1.0) / (SAMPLE_RATE / rate)
+    r0 = mu + mode.frame_samples * rate / SAMPLE_RATE * np.array(
+        [[1.0, 2.0]] * 2)
+    w0, idx0, frac0, phase0 = rx.host_bases_windows(r0, step, 0.0, freq)
+    win = rx.window_len(step)
+    xw = np.stack([[raw[c][a:a + win] for a in w0[c]] for c in range(2)])
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        out = {}
+        for d, r in rxs.items():
+            before = (ldpc.LayeredDecoder.launches,
+                      ldpc.LayeredDecoder.screen_launches)
+            plane = r.plane_step_windows(xw, idx0, frac0, phase0, freq, step)
+            fec = r.fec_step(plane)
+            out[d] = (plane, fec, ldpc.LayeredDecoder.launches - before[0],
+                      ldpc.LayeredDecoder.screen_launches - before[1])
+        assert (torch.backends.cuda.matmul.allow_tf32
+                and torch.backends.cudnn.allow_tf32)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+    (gp, gf, launches, screens), (cp, cf, _, _) = out["cuda"], out["cpu"]
+    assert launches == screens == 1
+    (gs,), (cs,) = gp.shards, cp.shards
+    assert gs.eq.device.type == "cuda"
+    assert _rel_db(gs.eq, cs.eq) < -80.0 and _rel_db(gs.csi, cs.csi) < -80.0
+    for k, v in cp.diag_host().items():
+        np.testing.assert_allclose(gp.diag_host()[k], v, rtol=1e-3,
+                                   atol=1e-6 * np.abs(v).max())
+    np.testing.assert_array_equal(gp.l1_cells().real > 0,
+                                  cp.l1_cells().real > 0)
+    assert cf.ldpc_ok.all() and cf.bch_clean.all()
+    for a in ("bb_bytes", "ldpc_ok", "ldpc_iters", "bch_clean"):
+        np.testing.assert_array_equal(getattr(gf, a), getattr(cf, a))
