@@ -74,18 +74,30 @@ g++, all at once, then:
    host BCH, the entry point's parse and write) and in CUDA events (H2D
    copy, front end, demod + equalize, demap, kernels, packing), the step
    wall time and real-time factor, peak device memory; then the step at
-   32 channels (the eight windows repeated, no acquisition): how many
-   flagship channels one card carries in real time.  Then the contiguous
-   ``step()`` of a (2, 2) grid on the one card at 2K (the halo path),
-   against the CPU;
-10. prints the kernel table as one JSON line (launches counted on the
+   32 and at 64 channels (the eight windows repeated, no acquisition):
+   how many flagship channels one card carries in real time.  Then the
+   contiguous ``step()`` of a (2, 2) grid on the one card at 2K (the halo
+   path), against the CPU;
+10. the receive grid across processes at the flagship's width: two
+   flagship channels (10 Msps, 27 dB AWGN, CFO 0 and +2 kHz) on a
+   (2 channels, 2 time blocks) grid through the contiguous ``step()``,
+   once in this process and once as two spawned rank processes on the
+   one card (``torch.distributed`` with ``gloo`` through a ``file://``
+   store, ``layout="time"``: each rank holds one time block of both
+   channels, so the halo and the per-channel means cross ranks).
+   Checks: the union of the ranks' hard bits equal to the one-process
+   step's, every rank's stats equal to it, the TS exact, no failed
+   codeword, one launch of each kernel a rank.  Times both steps on the
+   host clock.  A rank that fails or outlives its time limit fails the
+   phase;
+11. prints the kernel table as one JSON line (launches counted on the
    streaming path, and per path), the card's nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
 The port's transmitter makes the 32K signals of phases 3, 6 and 7 in
 worker processes started first, beside the builds and phases 1-2; the
-same workers make phase 9's captures from phase 3's noise-free frames
-while phases 4-8 run.
+same workers make phase 9's and phase 10's captures from phase 3's
+noise-free frames while phases 4-8 run.
 
 Any failed phase exits non-zero.  Without a GPU, or without the port's
 package beside it, it exits non-zero before printing any result.
@@ -95,6 +107,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -134,14 +147,24 @@ ALL_TABLES = [("NORMAL", r) for r in ("C1_2", "C3_5", "C2_3", "C3_4", "C4_5",
 LITE_TABLES = [("SHORT", "C1_3"), ("SHORT", "C2_5")]
 # the pod (phase 9): POD_CHANNELS flagship channels decoded a step on one
 # card, the superframe tiled to POD_FRAMES frames; the step timed again at
-# POD_CAPACITY_CHANNELS (the BASELINE's 64 channels are cut to these for
-# the run's time limit: signal generation and blind acquisition grow with
-# the channel count)
+# POD_CAPACITY_CHANNELS, the BASELINE's 64 among them (the channels
+# decoded through the entry point are cut to POD_CHANNELS for the run's
+# time limit: signal generation and blind acquisition grow with the
+# channel count)
 POD_CHANNELS = 8
-POD_CAPACITY_CHANNELS = 32
+POD_CAPACITY_CHANNELS = (32, 64)
 POD_FRAMES = 6
 POD_SNR_DB = 27.0
 POD_CFO_MAX_ERR_HZ = 500.0
+# the two-rank phase (10): two flagship channels with these CFOs on a
+# (2 channels, 2 time blocks) grid, one time block a rank; a rank that
+# waits longer than RANKS_GROUP_TIMEOUT_S in a collective raises, and the
+# phase fails when the ranks have not ended after RANKS_JOIN_TIMEOUT_S
+RANKS_CFO_HZ = (0.0, 2e3)
+RANKS_WORLD = 2
+RANKS_TIMING_REPS = 5
+RANKS_GROUP_TIMEOUT_S = 240.0
+RANKS_JOIN_TIMEOUT_S = 420.0
 # card against CPU on one full-width frame (phases 6-7): the same float32
 # stages summed in another order; relative rms of the plane and of csi,
 # and the delay profile's largest difference over its peak
@@ -1429,10 +1452,10 @@ def phase_pod(report, sig, paths):
         f"{rec['realtime_factor_per_channel']:.3f}x real time a channel, "
         f"{rec['channels_realtime_end_to_end']:.1f} channels end to end")
 
-    # ---- the stages in CUDA events, at 8 and at 32 channels ----
+    # ---- the stages in CUDA events, at 8, 32 and 64 channels ----
     rx, buf, args = probe.saved
     cap = {}
-    for n_ch in (POD_CHANNELS, POD_CAPACITY_CHANNELS):
+    for n_ch in (POD_CHANNELS, *POD_CAPACITY_CHANNELS):
         cap[n_ch] = r = pod_step_at(rx, buf, args, n_ch)
         r["channels_realtime_device"] = (n_ch * frame_ms
                                          / r["device_step_ms"])
@@ -1552,6 +1575,256 @@ def phase_pod_halo(report):
         raise AssertionError(f"phase 9 contiguous step: {rec}")
 
 
+def make_rank_capture(clean, n_fec, path):
+    """Phase 10's input (a worker task): the noise-free superframe
+    ``clean`` tiled to three frames through the port's channel at
+    STREAM_RATE, channel c with CFO RANKS_CFO_HZ[c] and POD_SNR_DB of AWGN
+    over the signal's power, saved as complex64 [2, N] with the L1-post
+    size.  Returns the worker's seconds."""
+    import numpy as np
+    from sdr_receiver_dvb_t2_tpu_torch.models.channel import (
+        ChannelConfig, impair)
+    from sdr_receiver_dvb_t2_tpu_torch.models.transmitter import (
+        Transmitter, TxConfig)
+    from sdr_receiver_dvb_t2_tpu_torch.params.modes import SAMPLE_RATE
+    t0 = time.perf_counter()
+    mode, plp = flagship_config()
+    l1_post = Transmitter(TxConfig(mode=mode, plp=plp,
+                                   fec_blocks_per_frame=n_fec,
+                                   num_t2_frames=len(clean))
+                          ).l1_pre.l1_post_size
+    iq = np.tile(clean.reshape(-1), 2)[:3 * mode.frame_samples]
+    n_dev = int(len(iq) * STREAM_RATE / SAMPLE_RATE)
+    pad = -len(iq) % (1 << max(len(iq).bit_length() - 3, 0))
+    iq = np.concatenate([iq, np.zeros(pad, np.complex64)])
+    rows = []
+    for c, cfo in enumerate(RANKS_CFO_HZ):
+        dev = impair(iq, ChannelConfig(device_rate=STREAM_RATE, cfo_hz=cfo,
+                                       seed=60 + c))[:n_dev]
+        npow = np.mean(np.abs(dev) ** 2) / 10 ** (POD_SNR_DB / 10)
+        rng = np.random.default_rng(60 + c)
+        rows.append((dev + (rng.standard_normal(n_dev)
+                            + 1j * rng.standard_normal(n_dev))
+                     * np.sqrt(npow / 2)).astype(np.complex64))
+    np.savez(path, raw=np.stack(rows), l1_post=l1_post, n_fec=n_fec)
+    return time.perf_counter() - t0
+
+
+def _ranks_receiver(cap, mesh):
+    """The flagship ShardedReceiver of phase 10 on ``mesh`` and the
+    contiguous step's inputs: the whole grid's raw [2, 2 * raw_block],
+    its bases and the per-channel NCO frequencies."""
+    import numpy as np
+    from sdr_receiver_dvb_t2_tpu_torch.parallel import sharding
+    from sdr_receiver_dvb_t2_tpu_torch.params.modes import SAMPLE_RATE
+    mode, plp = flagship_config()
+    cfg = sharding.ShardedConfig(mode=mode, plp=plp,
+                                 n_fec_per_frame=int(cap["n_fec"]),
+                                 l1_post_cells=int(cap["l1_post"]))
+    rx = sharding.ShardedReceiver(cfg, mesh)
+    rate = float(STREAM_RATE)
+    step = rate / (2 * SAMPLE_RATE)
+    freq = 2 * np.pi * np.asarray(RANKS_CFO_HZ) / rate
+    rb = rx.raw_block_for(step)
+    # elementary sample 0 at the capture's first frame start
+    mu = ((rx.n_taps - 1) / 4.0 - 1.0) / (SAMPLE_RATE / rate)
+    bases = rx.host_bases(mu, step, 0.0, freq, rb, n_channels=2)
+    x = np.ascontiguousarray(cap["raw"][:, :2 * rb])
+    return rx, x, (*bases, freq, step)
+
+
+def _timed_steps(rx, x, args, reps):
+    """The host-clock ms of ``reps`` contiguous steps, each ended by a
+    device synchronise, and of their stages, each between synchronises:
+    the plane (with the halo), the FEC on the card and on the host, and
+    the collectives (the ring and the reductions, inside the others and
+    after them).  Returns (step ms, {stage: ms a step})."""
+    from sdr_receiver_dvb_t2_tpu_torch.parallel import distributed
+    acc: dict = {}
+
+    def timed(key, fn):
+        def run(*a, **kw):
+            sync()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            sync()
+            acc[key][-1] += (time.perf_counter() - t0) * 1e3
+            return out
+        return run
+    stages = dict(plane_ms=(rx, "plane_step"),
+                  fec_device_ms=(rx, "fec_step_async"),
+                  fec_host_ms=(rx, "fec_finish"),
+                  collectives_ms=(distributed.Mesh, "_all_reduce"),
+                  ring_ms=(distributed.Mesh, "ring_halo"))
+    saved = [(owner, name, getattr(owner, name))
+             for owner, name in stages.values()]
+    for key, (owner, name) in stages.items():
+        acc[key] = []
+        setattr(owner, name, timed(key, getattr(owner, name)))
+    walls = []
+    try:
+        for _ in range(reps):
+            for v in acc.values():
+                v.append(0.0)
+            sync()
+            t0 = time.perf_counter()
+            rx.step(x, *args)
+            sync()
+            walls.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        for owner, name, fn in saved:
+            if owner is rx:
+                delattr(rx, name)
+            else:
+                setattr(owner, name, fn)
+    return walls, acc
+
+
+def run_rank(rank, init_method, cap_path, out_path):
+    """One rank of phase 10 (a spawned process): join the group, run the
+    contiguous step on this rank's time block of both channels with the
+    kernel counts set to 0 just before it and read just after, time
+    RANKS_TIMING_REPS more steps, and save the rank's hard bits (packed),
+    stats, counts and times."""
+    import numpy as np
+    import torch
+    from sdr_receiver_dvb_t2_tpu_torch.ops import ldpc
+    from sdr_receiver_dvb_t2_tpu_torch.parallel import distributed
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # the ranks share the host's cores
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // RANKS_WORLD))
+    distributed.init(RANKS_WORLD, rank, init_method,
+                     timeout_s=RANKS_GROUP_TIMEOUT_S)
+    try:
+        mesh = distributed.rank_mesh(2, 2, "time")     # the visible card
+        rx, x, args = _ranks_receiver(np.load(cap_path), mesh)
+        rows, t0, t1 = mesh.block
+        x = x.reshape(2, 2, -1)[:, t0:t1].reshape(2, -1)
+        ldpc.LayeredDecoder.launches = ldpc.LayeredDecoder.screen_launches = 0
+        sync()
+        hard, stats = rx.step(x, *args)
+        sync()
+        launches = (ldpc.LayeredDecoder.launches,
+                    ldpc.LayeredDecoder.screen_launches)
+        walls, stages = _timed_steps(rx, x, args, RANKS_TIMING_REPS)
+        np.savez(out_path, hard=np.packbits(hard, axis=-1),
+                 chans=mesh.channels(2), block=np.array([t0, t1]),
+                 launches=np.array(launches), step_ms=np.array(walls),
+                 **{f"stage_{k}": np.array(v) for k, v in stages.items()},
+                 **{f"stat_{k}": np.asarray(v) for k, v in stats.items()})
+    finally:
+        distributed.shutdown()
+
+
+def phase_pod_ranks(report, sig, cap_path):
+    """Phase 10: the flagship's contiguous step on a (2, 2) grid in this
+    process, then across two spawned ranks on the one card; held equal."""
+    import multiprocessing
+    import numpy as np
+    import torch
+    from sdr_receiver_dvb_t2_tpu_torch.io.native import NativeBBFrameParser
+    from sdr_receiver_dvb_t2_tpu_torch.parallel import sharding
+    smi = report["device"]["smi"]
+    _, plp = flagship_config()
+    cap = np.load(cap_path)
+    rx, x, args = _ranks_receiver(cap, sharding.make_mesh(
+        2, 2, devices=[DEVICE] * 4))
+    hard, stats = rx.step(x, *args)
+    one_ms, one_stages = _timed_steps(rx, x, args, RANKS_TIMING_REPS)
+    del rx
+    torch.cuda.empty_cache()            # the card's memory to the ranks
+
+    out_dir = Path(cap_path).parent
+    store = out_dir / "store"
+    store.unlink(missing_ok=True)
+    outs = [out_dir / f"rank{r}.npz" for r in range(RANKS_WORLD)]
+    for o in outs:
+        o.unlink(missing_ok=True)
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=run_rank, args=(r, f"file://{store}",
+                                                str(cap_path), str(outs[r])))
+             for r in range(RANKS_WORLD)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(max(1.0, RANKS_JOIN_TIMEOUT_S
+                       - (time.perf_counter() - t0)))
+    finally:
+        hung = [p.pid for p in procs if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    ranks_s = time.perf_counter() - t0
+    codes = [p.exitcode for p in procs]
+    if hung or any(codes):
+        raise AssertionError(f"phase 10: ranks {codes} (hung: {hung})")
+    got = [dict(np.load(o)) for o in outs]
+    union = np.zeros_like(np.packbits(hard, axis=-1))
+    cells = np.zeros(union.shape[:2], int)
+    for d in got:
+        t0_, t1_ = d["block"]
+        idx = np.ix_(d["chans"], np.arange(t0_, t1_))
+        union[idx] = d["hard"]
+        cells[idx] += 1
+    equal = bool((cells == 1).all()
+                 and np.array_equal(np.unpackbits(union, axis=-1), hard))
+    # the float stats come from batches of other sizes on the card (four
+    # shards in one call against two), so they are reported, not held
+    stats_diff = {k: max(float(np.max(np.abs(d[f"stat_{k}"] - np.asarray(v))))
+                         for d in got) for k, v in stats.items()}
+    ts_ok = []
+    for c in range(2):
+        bits = np.unpackbits(union[c], axis=-1).reshape(-1, plp.n_bch)
+        bb = np.ascontiguousarray(np.packbits(bits[:, :plp.k_bch], axis=-1))
+        ts_ok.append(bool(_ts_exact(NativeBBFrameParser().parse_batch(bb),
+                                    sig["ts"])))
+    launches = [d["launches"].tolist() for d in got]
+    rank_ms = [d["step_ms"].tolist() for d in got]
+    rank_med = max(float(np.median(m)) for m in rank_ms)
+    med = lambda v: round(float(np.median(v)), 3)            # noqa: E731
+    stage_ms = dict(one_process={k: med(v) for k, v in one_stages.items()},
+                    ranks=[{k[6:]: med(v) for k, v in d.items()
+                            if k.startswith("stage_")} for d in got])
+    rec = dict(grid=[2, 2], layout="time", channels=2,
+               codewords=int(hard.shape[1] * hard.shape[2] * 2),
+               ldpc_failures=int(stats["ldpc_failures"]),
+               ldpc_failures_ranks=[int(d["stat_ldpc_failures"])
+                                    for d in got],
+               bch_dirty=int(stats["bch_dirty"]), ts_exact=ts_ok,
+               equal_to_one_process=equal, stats_max_abs_diff=stats_diff,
+               launches_per_rank=launches,
+               launches=sum(a for a, _ in launches),
+               screen_launches=sum(b for _, b in launches),
+               one_process_step_ms=one_ms, rank_step_ms=rank_ms,
+               one_process_step_ms_median=float(np.median(one_ms)),
+               rank_step_ms_median=rank_med, ranks_run_s=ranks_s,
+               stage_ms_median=stage_ms)
+    report["pod_ranks"] = rec
+    log(f"phase 10 two ranks on one card ({smi}): flagship (2, 2) grid, "
+        f"layout time, {rec['codewords']} codewords; union of the ranks' "
+        f"hard bits equal to one process {equal}, stats' largest "
+        f"difference {stats_diff}; LDPC failures {rec['ldpc_failures']} "
+        f"(ranks {rec['ldpc_failures_ranks']}), BCH-dirty {rec['bch_dirty']}; TS "
+        f"exact {ts_ok}; launches a rank (decoder, screen) {launches}; "
+        f"host-clock step: one process "
+        f"{[round(v, 1) for v in one_ms]} ms (median "
+        f"{rec['one_process_step_ms_median']:.1f}), two ranks "
+        f"{[[round(v, 1) for v in m] for m in rank_ms]} ms (slower rank's "
+        f"median {rank_med:.1f}); stage medians, ms a step {stage_ms}; "
+        f"ranks ran {ranks_s:.1f} s")
+    if not (equal and all(ts_ok)
+            and rec["ldpc_failures"] == 0
+            and all(d["stat_ldpc_failures"] == 0 for d in got)
+            and all(a == b == 1 for a, b in launches)):
+        raise AssertionError(f"phase 10: {rec}")
+    for p in [cap_path, *outs, store]:
+        Path(p).unlink(missing_ok=True)
+
+
 def kernel_bounds(plan, w, sweeps, n_syn):
     """Least times (ms) the card could take for the decoder with its screen
     and for the screen alone, from this run's sizes and sweeps: each input
@@ -1641,7 +1914,7 @@ def phase_kernel_table(report, llr):
     recv, strm = report["receive"], report["stream"]
     paths = dict(stream="stream", receive="receive", sfn_receive="sfn",
                  miso_receive="miso", sfn_stream="sfn_stream", pod="pod",
-                 pod_halo="pod_halo")
+                 pod_halo="pod_halo", pod_ranks="pod_ranks")
 
     def by_path(count):
         return {name: report[key][count] for name, key in paths.items()}
@@ -1722,6 +1995,11 @@ def main(argv=None) -> int:
                      for c in range(POD_CHANNELS)]
         pod_caps = [pool.submit(make_pod_capture, flagship[3], c, p)
                     for c, p in enumerate(pod_paths)]
+        rank_dir = ROOT / "build" / "chip_smoke" / "ranks"
+        rank_dir.mkdir(parents=True, exist_ok=True)
+        rank_cap = rank_dir / "capture.npz"
+        rank_cap_s = pool.submit(make_rank_capture, flagship[3],
+                                 flagship[1], rank_cap)
         del flagship
         sfn_signal = signals["sfn"].result()
         miso_signal = signals["miso"].result()
@@ -1734,8 +2012,10 @@ def main(argv=None) -> int:
         del miso_signal
         phase_sfn_stream(report)
         report["pod_capture_s"] = [f.result() for f in pod_caps]
+        report["rank_capture_s"] = rank_cap_s.result()
     phase_pod(report, sig, pod_paths)
     phase_pod_halo(report)
+    phase_pod_ranks(report, sig, rank_cap)
     rows = phase_kernel_table(report, sig["llr"])
     if args.report is not None:
         args.report.parent.mkdir(parents=True, exist_ok=True)

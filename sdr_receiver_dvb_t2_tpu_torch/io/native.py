@@ -2,9 +2,10 @@
 
 The C++ source ships in the package.  At first use it is compiled with
 ``g++ -O2 -shared -fPIC -std=c++17`` into
-``build/torch_native/libdvbt2_runtime.<hash>.so`` under the repository
-root, the hash of the source and the flags naming the library (as
-``ops/_build.py`` names the CUDA kernels).  The compiler writes a
+``torch_native/libdvbt2_runtime.<hash>.so`` under ``ops._build.build_dir``
+(in the package, or a per-user cache where the package is read-only), the
+hash of the source and the flags naming the library (as ``ops/_build.py``
+names the CUDA kernels).  The compiler writes a
 temporary name that ``os.replace`` moves into place, so a process that
 loads the library never finds it half written.  There is no fallback: a
 failed build raises with the compiler's output.  The C ABI avoids a
@@ -21,8 +22,10 @@ from pathlib import Path
 
 import numpy as np
 
+from ..ops._build import build_dir
+
 SRC = Path(__file__).resolve().parents[1] / "native" / "dvbt2_runtime.cc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_native"
+BUILD_DIR = build_dir("torch_native")
 CXX_FLAGS = ["-O2", "-shared", "-fPIC", "-std=c++17"]
 
 _lib = None

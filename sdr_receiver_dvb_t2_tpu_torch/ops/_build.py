@@ -2,8 +2,8 @@
 
 Each ``ops/csrc/<name>.cu`` has a plain C interface.  At first use it is
 compiled with ``nvcc`` for Hopper (``sm_90a``) into
-``build/torch_kernels/lib<name>.<hash>.so`` under the repository root and
-loaded with ctypes; the hash of the source names the library, so an edited
+``torch_kernels/lib<name>.<hash>.so`` under :func:`build_dir` and loaded
+with ctypes; the hash of the source names the library, so an edited
 source is rebuilt.  :func:`build_all` starts one nvcc per source at once.
 There is no prebuilt fallback: a failed build raises.
 """
@@ -17,8 +17,33 @@ import subprocess
 import threading
 from pathlib import Path
 
+PACKAGE = __name__.split(".")[0]
+PACKAGE_DIR = Path(__file__).resolve().parents[1]
+
+
+def _writable(d: Path) -> bool:
+    # the mode bits must name write permission, not only grant it: a
+    # superuser may write anywhere, and a directory set read-only is left
+    # alone all the same
+    return (d.is_dir() and os.access(d, os.W_OK)
+            and bool(d.stat().st_mode & 0o222))
+
+
+def build_dir(kind: str) -> Path:
+    """Where the port builds its libraries of one ``kind`` (the CUDA
+    kernels, the native runtime): ``<package>/_build/<kind>`` when the
+    package directory is writable (a checkout, a user install), else a
+    per-user cache, ``$XDG_CACHE_HOME`` or ``~/.cache``, under the
+    package's name (a read-only site-packages)."""
+    own = PACKAGE_DIR / "_build"
+    if _writable(own if own.exists() else PACKAGE_DIR):
+        return own / kind
+    cache = os.environ.get("XDG_CACHE_HOME") or Path.home() / ".cache"
+    return Path(cache) / PACKAGE / kind
+
+
 CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+BUILD_DIR = build_dir("torch_kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
 

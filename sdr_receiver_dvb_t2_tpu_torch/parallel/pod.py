@@ -26,7 +26,10 @@ what makes the following possible without any device-shape change:
   rx_base.cpp:163-167).
 
 Single-PLP static muxes can also use the fixed-cadence step() (contiguous
-raw with a halo in front of each time block).
+raw with a halo in front of each time block).  Across processes, one a
+host, ``distributed.rank_mesh`` lays the grid over ``torch.distributed``
+ranks and step() runs there unchanged; stream() feeds host numpy to one
+process's grid, as the TPU package's pod does.
 """
 from __future__ import annotations
 

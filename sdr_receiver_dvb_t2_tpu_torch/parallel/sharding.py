@@ -48,43 +48,21 @@ import functools
 import numpy as np
 import torch
 
-from .. import resolve_device
 from ..models.receiver import correct_bb_frames, host_copies
 from ..ops import bch_ops, rx_chain
 from ..ops import frontend as fe
 from ..ops.ldpc import LayeredDecoder
 from ..params import l1 as l1_mod
 from ..params.modes import T2Mode, PlpConfig
-
-
-@dataclasses.dataclass(frozen=True)
-class Mesh:
-    """A grid [n_ch][n_time] of torch devices (a device may repeat)."""
-    devices: tuple
-
-    @property
-    def shape(self) -> dict:
-        return {"ch": len(self.devices), "time": len(self.devices[0])}
-
-
-def _device(d) -> torch.device:
-    dev = resolve_device(d)
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
-    return dev
+from .distributed import Mesh, visible_devices
 
 
 def make_mesh(n_ch: int, n_time: int, devices=None) -> Mesh:
-    """2-D (channel x time-block) device grid.  ``devices`` defaults to
-    every visible CUDA device (raises without one); a device may be listed
-    more than once, e.g. ``["cpu"] * 4`` or four times one card."""
-    if devices is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device: pass devices=['cpu'] * n to "
-                               "run the plain PyTorch path")
-        devices = range(torch.cuda.device_count())
-        devices = [torch.device("cuda", i) for i in devices]
-    devices = [_device(d) for d in devices]
+    """2-D (channel x time-block) device grid in this process.  ``devices``
+    defaults to every visible CUDA device (raises without one); a device
+    may be listed more than once, e.g. ``["cpu"] * 4`` or four times one
+    card.  A grid over several processes: ``distributed.rank_mesh``."""
+    devices = visible_devices(devices)
     need = n_ch * n_time
     if len(devices) < need:
         raise ValueError(f"{need} devices needed, {len(devices)} available")
@@ -274,7 +252,8 @@ class ShardedReceiver:
         return self._decoders[key]
 
     def _groups(self, n_ch: int) -> list:
-        """[(device, flat shard indices c * n_time + t on it, in order)]."""
+        """[(device, flat shard indices c * n_time + t on it, in order)]
+        for this rank's cells (all cells on a one-process grid)."""
         if n_ch % self.n_ch:
             raise ValueError(f"{n_ch} channels on a grid of {self.n_ch} "
                              "channel rows: need a multiple")
@@ -283,11 +262,28 @@ class ShardedReceiver:
             by_dev: dict = {}
             for c in range(n_ch):
                 for t in range(self.n_time):
-                    by_dev.setdefault(self.mesh.devices[c // per][t],
-                                      []).append(c * self.n_time + t)
+                    dev = self.mesh.devices[c // per][t]
+                    if dev is not None:
+                        by_dev.setdefault(dev, []).append(c * self.n_time + t)
             self._groups_by_c[n_ch] = [(d, np.asarray(v, np.int64))
                                        for d, v in by_dev.items()]
         return self._groups_by_c[n_ch]
+
+    def _local(self, n_loc: int, nt_loc: int) -> tuple:
+        """This rank's input [n_loc channels, nt_loc time blocks] ->
+        (C, its channels' global indices, the local flat row of each
+        global shard c * n_time + t: -1 where another rank holds it)."""
+        rows, t0, t1 = self.mesh.block
+        if n_loc % len(rows) or nt_loc != t1 - t0:
+            raise ValueError(
+                f"input of {n_loc} channels x {nt_loc} time blocks: this "
+                f"rank holds grid rows {rows} x time blocks [{t0}, {t1})")
+        n_ch = n_loc // len(rows) * self.n_ch
+        chans = self.mesh.channels(n_ch)
+        loc = np.full((n_ch, self.n_time), -1, np.int64)
+        loc[np.ix_(chans, np.arange(t0, t1))] = np.arange(
+            n_loc * nt_loc).reshape(n_loc, nt_loc)
+        return n_ch, chans, loc.reshape(-1)
 
     # ------------------------------------------------------------------
     def raw_block_for(self, step: float) -> int:
@@ -314,23 +310,26 @@ class ShardedReceiver:
         return freq, s_hi, s_lo
 
     def _plane(self, x, idx0, frac0, phase0, freq, step_raw):
-        """x [C, n_time, n_raw] (numpy or a tensor; a pinned host tensor
-        goes to the card without blocking) -> PlaneResult."""
+        """x [C_r, n_time_r, n_raw], this rank's shards (numpy or a
+        tensor; a pinned host tensor goes to the card without blocking);
+        the bases [C, n_time] and freq, step_raw [C] cover the whole grid
+        -> PlaneResult."""
         if not isinstance(x, torch.Tensor):
             x = torch.from_numpy(np.ascontiguousarray(x, np.complex64))
-        n_ch, nt = x.shape[0], self.n_time
+        nt = self.n_time
+        n_ch, _, loc = self._local(x.shape[0], x.shape[1])
         freq, s_hi, s_lo = self._normalize_state(n_ch, freq, step_raw)
         bases = [np.broadcast_to(np.asarray(a, dt), (n_ch, nt)).reshape(-1)
                  for a, dt in ((idx0, np.int32), (frac0, np.float32),
                                (phase0, np.float32))]
         per_c = (freq, s_hi, s_lo)
-        rows = x.reshape(n_ch * nt, -1)
+        rows = x.reshape(x.shape[0] * x.shape[1], -1)
         mode, fs = self.mode, self.mode.frame_samples
         plan = self.plans[0]
         shards = []
         for dev, cells in self._groups(n_ch):
-            whole = len(cells) == n_ch * nt
-            xr = (rows if whole else rows[torch.from_numpy(cells)]).to(
+            whole = len(cells) == len(rows)
+            xr = (rows if whole else rows[torch.from_numpy(loc[cells])]).to(
                 dev, non_blocking=True)
             ch = cells // nt
             col = lambda a, idx: torch.from_numpy(      # noqa: E731
@@ -356,26 +355,32 @@ class ShardedReceiver:
         return PlaneResult(self, shards, n_ch)
 
     def plane_step(self, raw, idx0, frac0, phase0, freq, step_raw):
-        """Contiguous input [C, n_time * raw_block]: each time block gets
-        the tail of the block before it as its left halo (zeros before
-        block 0) -> PlaneResult."""
+        """Contiguous input [C_r, n_time_r * raw_block], this rank's time
+        blocks (all of them on a one-process grid): each block gets the
+        tail of the block before it as its left halo, through the ring
+        where that block lives on another rank, zeros before block 0 ->
+        PlaneResult."""
         if not isinstance(raw, torch.Tensor):
             raw = torch.from_numpy(np.ascontiguousarray(raw, np.complex64))
-        n_ch, halo = raw.shape[0], self.cfg.halo
-        blocks = raw.reshape(n_ch, self.n_time, -1)
-        left = torch.zeros(n_ch, self.n_time, halo, dtype=raw.dtype,
+        rows, t0, t1 = self.mesh.block
+        halo = self.cfg.halo
+        blocks = raw.reshape(raw.shape[0], t1 - t0, -1)
+        left = torch.zeros(*blocks.shape[:2], halo, dtype=raw.dtype,
                            device=raw.device)
         left[:, 1:] = blocks[:, :-1, -halo:]
+        left[:, 0] = self.mesh.ring_halo(blocks[:, -1, -halo:])
         return self._plane(torch.cat([left, blocks], dim=2), idx0, frac0,
                            phase0, freq, step_raw)
 
     def plane_step_windows(self, raw_w, idx0, frac0, phase0, freq,
                            step_raw):
-        """Per-shard raw windows [C, n_time, win] -> PlaneResult.
+        """Per-shard raw windows [C_r, n_time_r, win] (this rank's shards)
+        -> PlaneResult.
 
         Each window carries its own WINDOW_LEAD of left context at a
-        host-chosen raw position (host_bases_windows).  A pinned host
-        tensor goes to the card in one copy that does not block."""
+        host-chosen raw position (host_bases_windows), so no halo crosses
+        ranks.  A pinned host tensor goes to the card in one copy that
+        does not block."""
         return self._plane(raw_w, idx0, frac0, phase0, freq, step_raw)
 
     # ------------------------------------------------------------------
@@ -410,37 +415,42 @@ class ShardedReceiver:
         return i, plane.n_ch, parts
 
     def fec_finish(self, pending, correct=None) -> "FecResult":
-        """Host half of fec_step: wait for the copies, assemble [C, ...]
-        arrays and correct the BCH-dirty codewords."""
+        """Host half of fec_step: wait for the copies, assemble this
+        rank's [C_r, ...] arrays, correct the BCH-dirty codewords and
+        take each channel's SNR over its time shards."""
         i, n_ch, parts = pending
         state = self.plps[i]
-        f, nt = self.cfg.frames_per_shard, self.n_time
+        rows, t0, t1 = self.mesh.block
+        f, nt, nt_loc = self.cfg.frames_per_shard, self.n_time, t1 - t0
         nf, nb = state.n_fec_per_frame, state.plp.n_bch // 8
-        n = n_ch * nt
+        n_loc = n_ch // self.n_ch * len(rows)
+        _, chans, loc = self._local(n_loc, nt_loc)
+        n = n_loc * nt_loc
         bb = np.empty((n, f, nf, nb), np.uint8)
         ok = np.empty((n, f, nf), bool)
         iters = np.empty((n, f, nf), np.int32)
         clean = np.empty((n, f, nf), bool)
-        snr = np.empty(n, np.float32)
+        snr = np.zeros(n_ch * nt, np.float32)
         for cells, (host, done) in parts:
             if done is not None:
                 done.synchronize()
             h = {k: v.numpy() for k, v in host.items()}
-            m = len(cells)
-            bb[cells] = h["packed"].reshape(m, f, nf, nb)
-            ok[cells] = h["ok"].reshape(m, f, nf)
-            iters[cells] = h["iters"].reshape(m, f, nf)
-            clean[cells] = h["clean"].reshape(m, f, nf)
+            m, lc = len(cells), loc[cells]
+            bb[lc] = h["packed"].reshape(m, f, nf, nb)
+            ok[lc] = h["ok"].reshape(m, f, nf)
+            iters[lc] = h["iters"].reshape(m, f, nf)
+            clean[lc] = h["clean"].reshape(m, f, nf)
             snr[cells] = h["snr"].reshape(m, f).mean(1)
         # the host BCH for the codewords the screen flagged, in place
         attempt = (None if correct is None else
-                   np.repeat(np.asarray(correct, bool), nt * f * nf))
+                   np.repeat(np.asarray(correct, bool)[chans],
+                             nt_loc * f * nf))
         corrected = correct_bb_frames(bb.reshape(-1, nb), clean.reshape(-1),
                                       state.plp, attempt)
-        shape = (n_ch, nt * f, nf)
+        shape = (n_loc, nt_loc * f, nf)
         return FecResult(bb.reshape(*shape, nb), ok.reshape(shape),
                          iters.reshape(shape), clean.reshape(shape),
-                         snr.reshape(n_ch, nt).mean(1), state,
+                         self.mesh.time_mean(snr.reshape(n_ch, nt)), state,
                          corrected.reshape(shape))
 
     # ------------------------------------------------------------------
@@ -448,20 +458,33 @@ class ShardedReceiver:
         """Contiguous plane + primary-PLP fec.  step_raw: raw-domain
         resample ratio(s), host float64 — scalar (all channels share a
         clock) or [C] (independent clocks); likewise freq.
-        idx0/frac0/phase0: [C, n_time] (host_bases output)."""
+        idx0/frac0/phase0: [C, n_time] (host_bases output).
+
+        On a grid over ranks ``raw`` is this rank's blocks and the hard
+        bits are this rank's [C_r, n_time_r * F, ...]; the stats are the
+        whole grid's, the same on every rank."""
         plane = self.plane_step(raw, idx0, frac0, phase0, freq, step_raw)
         fec = self.fec_step(plane, 0)
         hard = np.unpackbits(fec.bb_bytes, axis=-1)
         diag = plane.diag_host()
+        mesh, n_ch = self.mesh, len(fec.snr_db)
+        chans = mesh.channels(n_ch)
+
+        def per_channel(bad):               # [C_r, F, n_fec] -> [C]
+            out = np.zeros(n_ch, np.int64)
+            out[chans] = np.sum(bad, axis=(1, 2))
+            return mesh.world_sum(out)
+        fail_ch = per_channel(~fec.ldpc_ok)
+        dirty_ch = per_channel(~fec.bch_clean)
         stats = dict(
-            ldpc_failures=np.sum(~fec.ldpc_ok),
-            bch_dirty=np.sum(~fec.bch_clean),
+            ldpc_failures=np.sum(fail_ch),
+            bch_dirty=np.sum(dirty_ch),
             snr_db=float(np.mean(fec.snr_db)),
             gi_cfo=diag["gi_cfo"], sro=diag["sro"],
-            ldpc_iters=int(np.max(fec.ldpc_iters)),
+            ldpc_iters=int(mesh.world_max(np.max(fec.ldpc_iters))),
             # per-channel health
-            ldpc_failures_ch=np.sum(~fec.ldpc_ok, axis=(1, 2)),
-            bch_dirty_ch=np.sum(~fec.bch_clean, axis=(1, 2)),
+            ldpc_failures_ch=fail_ch,
+            bch_dirty_ch=dirty_ch,
             snr_db_ch=fec.snr_db)
         if "cir_p" in diag:
             stats["cir_p"] = diag["cir_p"]
@@ -545,18 +568,22 @@ class PlaneResult:
 
     @functools.cached_property
     def _host(self) -> tuple:
-        nt, n = self.rx.n_time, self.n_ch * self.rx.n_time
-        sig = np.zeros((self.n_ch, self.rx.n_sig), np.complex64)
+        # this rank's shards, zeros elsewhere; on a grid over ranks the
+        # reductions below are collectives, so every rank reads them
+        mesh, nt = self.rx.mesh, self.rx.n_time
+        n = self.n_ch * nt
+        sig = np.zeros((n, self.rx.n_sig), np.complex64)
         per_shard: dict = {}
         for s in self.shards:
             for k, v in s.stats.items():
                 a = per_shard.setdefault(
                     k, np.zeros((n,) + tuple(v.shape[1:]), np.float32))
                 a[s.cells] = v.cpu().numpy()
-            first = s.cells % nt == 0
-            sig[s.cells[first] // nt] = s.sig.cpu().numpy()
-        # per-channel means over the channel's time shards
-        diag = {k: a.reshape(self.n_ch, nt, *a.shape[1:]).mean(axis=1)
+            sig[s.cells[s.cells % nt == 0]] = s.sig.cpu().numpy()
+        # the L1 cells from each channel's time-0 shard; per-channel means
+        # over the channel's time shards
+        sig = mesh.time_sum(sig.reshape(self.n_ch, nt, -1))
+        diag = {k: mesh.time_mean(a.reshape(self.n_ch, nt, *a.shape[1:]))
                 for k, a in per_shard.items()}
         return sig, diag
 
