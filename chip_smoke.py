@@ -5,19 +5,28 @@
 
 Builds the port's CUDA kernels from ``sdr_receiver_dvb_t2_tpu_torch/ops/csrc``
 with nvcc and its native host runtime (``native/dvbt2_runtime.cc``) with
-g++, all at once, then:
+g++, all at once, then (one call of the LDPC kernels launches the decoder
+once for each of its passes, ``ldpc.decoder_passes()``, and the screen
+once; the launch counts below are held to that):
 
 1. prints the card (name, power limit) and the build time;
-2. holds the LDPC kernel and its BCH screen bit-exact against their plain
-   PyTorch twin (``exit_tile=1``) on all 15 code tables, the T2-Lite B8
+2. holds the LDPC kernel and its BCH screen bit-exact (the BB bytes, ok,
+   iters, clean) against their plain PyTorch twin under the Pallas tile
+   contract (``exit_tile=128``) on all 15 code tables, the T2-Lite B8
    and B9 included (NORMAL_C2_3 with 256 codewords, the others 64),
    mixing noise-free, noisy and hopeless codewords: the tables differ in
-   the width of the kernel's state word and in its unrolled slot count;
+   the width of the kernel's state word and in its unrolled slot count.
+   Then on three SHORT r2/3 loads where the tile contract is not leaving
+   per codeword (tests/test_torch_ldpc_tile.py): a noisy load on which
+   some codewords' bits differ from the twin's with ``exit_tile=1`` (the
+   kernel's must differ on the same rows), the same load as two segments,
+   and a tile held past its largest first clean sweep by a codeword that
+   relapsed (the decoder's passes 2 and 3);
 3. receives two frames of the flagship mode (32K, GI 1/128, PP7 extended,
    rotated 256QAM, LDPC 64800 r2/3, 202 FEC blocks per frame) made by the
    port's transmitter with 27 dB AWGN, through ``TorchReceiver`` on the
    card: 404/404 LDPC ok and BCH clean, TS bytes equal to the transmitted
-   stream, and both kernels launched.  Then times an 8-frame batch (1616
+   stream, and both kernels launched, a call's passes each.  Then times an 8-frame batch (1616
    codewords) stage by stage, reads its peak device memory, and times
    ``receive_stream`` over a few batches;
    It also times the native BB parser against the Python one on the
@@ -34,7 +43,7 @@ g++, all at once, then:
    codewords) at most four batches and no failed codeword after it, no
    TS packet that was not transmitted and, after the pull-in, every
    transmitted superframe's TS whole, CFO within 500 Hz, one decoder
-   launch a batch.  Holds one front-end block and the P1 search on the
+   call a batch.  Holds one front-end block and the P1 search on the
    card against the CPU, and times acquisition, the front end, the P1
    search, each batch, and the raw input read over the whole run, after
    lock and after the pull-in;
@@ -42,14 +51,16 @@ g++, all at once, then:
    against the twin again
    and times them: the whole call, the call without the screen (so the
    screen's own time), the twin, the bounds and the BCH product's
-   ``torch.matmul``; then the same on a second load of 1616 codewords of
+   ``torch.matmul``, and each kernel's device time and launches a call in
+   torch.profiler's trace (which must hold both kernels, the decoder
+   once for each pass); then the same on a second load of 1616 codewords of
    which a quarter are hopeless and run all 15 sweeps, so that unequal
    sweeps are on record;
    then times both kernels on 1616 codewords of each T2-Lite table;
 6. receives two full-width SFN frames (bench.py ``_bench_sfn``: 32K, GI
    1/32, PP7 extended, whose own pilots fall short of the guard, so the
    Wiener-row plan) through a -10 dB echo at 0.6 of the guard and 27 dB
-   AWGN: every codeword clean, the TS exact, one launch of each kernel;
+   AWGN: every codeword clean, the TS exact, one call of the kernels;
    holds one frame's equalized plane, csi and delay profile on the card
    against the CPU, and times an 8-frame batch stage by stage;
 7. the same for MISO (bench.py ``_bench_miso``: 32K, GI 1/128, PP8
@@ -57,22 +68,25 @@ g++, all at once, then:
 8. streams the 2K GI 1/8 PP7 u8 capture of tests/_port_capture.py
    through ``StreamingReceiver`` on the card: locked with the SFN plan,
    the TS exact, the first-path timing loop's moves reported, one decoder
-   launch a batch;
+   call a batch;
 9. the multi-channel pod through the user's entry point,
    ``cli.main(["--pod", toml])``: eight u8 captures of the flagship
    superframe tiled to six frames (10 Msps), each channel behind its own
    noise-only lead (0.1-1.5 frames) with its own CFO (within +-45 kHz),
    SRO (within +-2 ppm) and 27 dB AWGN, written under ``build/``; one
    card, all eight channels a step (one frame each: 1616 codewords, one
-   launch of each kernel a step), tracking, L1 tracking and relock on.
+   call of the kernels a step), tracking, L1 tracking and relock on.
    Checks: every channel locked, none mismatched, no TS packet that was
    not transmitted and every superframe's TS whole after at most one
    settling step, no failed codeword after it, each channel's applied
-   CFO within 500 Hz of its truth, one launch of each kernel a step.
-   Times blind acquisition (a channel and in all), each step's stages on
+   CFO within 500 Hz of its truth, one call of the kernels a step.
+   Holds the step's LDPC call against the twin (bytes, ok, iters, clean
+   exact) at 8, 32 and 64 channels, with the grid's segments (one a grid
+   cell: one on this one-card grid) and with one segment a shard.  Times blind acquisition (a channel and in all), each step's stages on
    the host clock (window assembly, plane, L1 decode, FEC on the card,
    host BCH, the entry point's parse and write) and in CUDA events (H2D
-   copy, front end, demod + equalize, demap, kernels, packing), the step
+   copy, front end, demod + equalize, demap, the kernels with and without
+   the screen beside the screen's torch.matmul; no packing), the step
    wall time and real-time factor, peak device memory; then the step at
    32 and at 64 channels (the eight windows repeated, no acquisition):
    how many flagship channels one card carries in real time.  Then the
@@ -87,7 +101,7 @@ g++, all at once, then:
    channels, so the halo and the per-channel means cross ranks).
    Checks: the union of the ranks' hard bits equal to the one-process
    step's, every rank's stats equal to it, the TS exact, no failed
-   codeword, one launch of each kernel a rank.  Times both steps on the
+   codeword, one call of the kernels a rank.  Times both steps on the
    host clock.  A rank that fails or outlives its time limit fails the
    phase;
 11. prints the kernel table as one JSON line (launches counted on the
@@ -241,29 +255,57 @@ def coded_llrs(code_rate: str, fec_frame: str, n_cw: int, seed: int):
     return np.ascontiguousarray(llr.round().clip(-127, 127).astype(np.int8)), plp
 
 
-def check_kernel_against_twin(llr, plp, max_iters=15):
-    """Kernel and twin (exit_tile=1) on the same int8 LLRs on the card.
-    Returns (result dict, kernel outputs); raises on any difference."""
+def unpack_bits(packed):
+    """uint8 [W, k / 8] MSB-first bytes -> int8 hard bits [W, k], on their
+    device (np.unpackbits)."""
+    import torch
+    shifts = torch.arange(7, -1, -1, device=packed.device, dtype=torch.uint8)
+    bits = (packed.unsqueeze(-1) >> shifts) & 1
+    return bits.reshape(packed.shape[0], -1).to(torch.int8)
+
+
+def tile_sweeps(ok, iters, max_iters, segments=None) -> int:
+    """Sweeps the tile contract runs on this load: each 128-codeword tile
+    its largest (iters where ok, else max_iters) times its codewords.  A
+    tile held past that by a codeword that relapsed counts less than it
+    ran, so a bound from this stays a lower bound."""
+    import numpy as np
+    from sdr_receiver_dvb_t2_tpu_torch.ops import ldpc
+    ran = np.where(ok.cpu().numpy(), iters.cpu().numpy(), max_iters)
+    tile = ldpc.tile_index(segments, len(ran))
+    top = np.zeros(int(tile.max()) + 1 if len(ran) else 0, np.int64)
+    np.maximum.at(top, tile, ran)
+    return int(top[tile].sum())
+
+
+def check_kernel_against_twin(llr, plp, max_iters=15, segments=None):
+    """Kernel and twin under the tile contract (exit_tile=128, the
+    segments' tiles) on the same int8 LLRs on the card: the BB bytes
+    (the twin's bits packed by bch_ops.pack_bits), ok, iters and clean.
+    Returns (result dict, kernel outputs, twin outputs); raises on any
+    difference."""
     import torch
     from sdr_receiver_dvb_t2_tpu_torch.ops import bch_ops, ldpc
     h = bch_ops._h_matrix(plp.k_bch, plp.bch_m, plp.bch_t)
     dec = ldpc.LayeredDecoder(plp.ldpc_table_name, max_iters=max_iters,
                               bch_h=h)
-    got = dec(llr)
+    got = dec(llr, segments=segments)
     sync()
     want = ldpc.decode_plain(llr, plp.ldpc_table_name, max_iters, h,
-                             exit_tile=1)
+                             exit_tile=ldpc.TILE, segments=segments)
     sync()
-    names = ("hard", "ok", "iters", "clean")
+    names = ("bytes", "ok", "iters", "clean")
     diff = {n: int((g.to(torch.int32) - w.to(torch.int32)).abs().max())
-            for n, g, w in zip(names, got, want)}
+            for n, g, w in zip(names, got,
+                               (bch_ops.pack_bits(want[0]), *want[1:]))}
     res = dict(table=plp.ldpc_table_name, n_cw=int(llr.shape[0]),
-               max_abs_err=max(diff.values()), per_output=diff,
-               ok=int(got[1].sum()), clean=int(got[3].sum()),
-               iters_hist=torch.bincount(got[2].long().cpu()).tolist())
+               segments=segments, max_abs_err=max(diff.values()),
+               per_output=diff, ok=int(got[1].sum()), clean=int(got[3].sum()),
+               iters_hist=torch.bincount(got[2].long().cpu()).tolist(),
+               sweeps=tile_sweeps(got[1], got[2], max_iters, segments))
     if any(diff.values()):
         raise AssertionError(f"kernel differs from its twin: {res}")
-    return res, got
+    return res, got, want
 
 
 # ---------------------------------------------------------------------------
@@ -292,20 +334,70 @@ def phase_build(report):
         f"{build_s:.1f} s ({len(logs)} CUDA sources built; {host_lib})")
 
 
+def noisy_load(seed, lo, hi, w=128):
+    """SHORT r2/3's all-zero codeword at noise sigma from lo to hi over the
+    rows: LLR = round(4 y / sigma^2), y = 1 + sigma * N(0, 1), the noise
+    one [w, 16200] draw from default_rng(seed).  All-zero is a codeword in
+    any bit order, so these are kernel-ordered LLRs
+    (tests/test_torch_ldpc_tile.py holds the twin against Pallas on
+    them)."""
+    import numpy as np
+    s = np.linspace(lo, hi, w)[:, None]
+    y = 1 + s * np.random.default_rng(seed).standard_normal((w, 16200))
+    return np.clip(np.round(4 * y / s ** 2), -127, 127).astype(np.int8)
+
+
 def phase_kernel_parity(report):
     import torch
+    from sdr_receiver_dvb_t2_tpu_torch.ops import bch_ops, ldpc
+    from sdr_receiver_dvb_t2_tpu_torch.params.modes import (
+        CodeRate, FecFrame, PlpConfig)
     rows = []
     for frame, rate in ALL_TABLES:
         n_cw = 256 if (frame, rate) == ("NORMAL", "C2_3") else 64
         llr, plp = coded_llrs(rate, frame, n_cw, seed=len(rows) + 1)
-        res, _ = check_kernel_against_twin(
+        res, _, _ = check_kernel_against_twin(
             torch.from_numpy(llr).to(DEVICE), plp)
         rows.append(res)
+    # SHORT r2/3 loads on which the tile contract is not leaving per
+    # codeword: the noisy load (12 sweeps), where some codewords' bits
+    # differ; the same as two segments; rows 0-31 of a quieter load, where
+    # a codeword clean at sweep 3 is dirty at the tile's largest first
+    # clean sweep, 4, and the tile leaves at 5 (the kernel's passes 2-3)
+    plp = PlpConfig(code_rate=CodeRate.C2_3, fec_frame=FecFrame.SHORT)
+    name = plp.ldpc_table_name
+    noisy = torch.from_numpy(noisy_load(2, 0.6, 0.9)).to(DEVICE)
+    res, got, want = check_kernel_against_twin(noisy, plp, max_iters=12)
+    one = ldpc.decode_plain(noisy, name, 12, exit_tile=1)
+    kernel_rows = torch.nonzero(
+        (got[0] != bch_ops.pack_bits(one[0])).any(1)).flatten().tolist()
+    twin_rows = torch.nonzero(
+        (want[0] != one[0]).any(1)).flatten().tolist()
+    res.update(label="noisy load", rows_differing_from_exit_tile_1=kernel_rows)
+    rows.append(res)
+    res, _, _ = check_kernel_against_twin(noisy, plp, max_iters=12,
+                                          segments=[60, 68])
+    rows.append(dict(res, label="noisy load, two segments"))
+    relapse = torch.from_numpy(noisy_load(2, 0.5, 0.8)[:32]).to(DEVICE)
+    res, got, _ = check_kernel_against_twin(relapse, plp)
+    one = ldpc.decode_plain(relapse, name, 15, exit_tile=1)
+    at_t0 = ldpc.decode_plain(relapse, name, 4, exit_tile=ldpc.TILE)
+    res.update(label="relapsing tile", first_clean_max=int(one[2].max()),
+               dirty_at_t0=int((~at_t0[1]).sum()))
+    rows.append(res)
     report["kernel_parity"] = rows
-    log(f"phase 2 kernel vs twin (bit-exact hard/ok/iters/clean) on "
-        f"{len(rows)} tables: " + "; ".join(
-        f"{r['table']} W={r['n_cw']} ok={r['ok']} clean={r['clean']} "
-        f"iters={r['iters_hist']}" for r in rows))
+    log(f"phase 2 kernel vs twin under the tile contract (bytes, ok, iters, "
+        f"clean exact) on {len(ALL_TABLES)} tables and 3 SHORT r2/3 loads: "
+        + "; ".join(f"{r.get('label', r['table'])} W={r['n_cw']} ok={r['ok']} "
+                    f"clean={r['clean']} iters={r['iters_hist']} sweeps "
+                    f"{r['sweeps']}" for r in rows)
+        + f"; noisy load rows whose bits differ from leaving per codeword: "
+        f"kernel {kernel_rows}, twin {twin_rows}")
+    if not (kernel_rows and kernel_rows == twin_rows
+            and rows[-1]["ok"] == 32 and rows[-1]["first_clean_max"] == 4
+            and rows[-1]["dirty_at_t0"] > 0):
+        raise AssertionError(f"phase 2: the loads do not show the tile "
+                             f"contract: {rows[-3:]}")
 
 
 def flagship_config():
@@ -500,7 +592,8 @@ def phase_receive(report, signal):
         f"kernel launches: decoder {launches}, screen {screen_launches}; "
         f"iters {rec['iters_hist']}")
     if not (rec["ldpc_ok"] == n_cw and rec["bch_clean"] == n_cw and ts_ok
-            and launches > 0 and screen_launches > 0 and finite
+            and screen_launches > 0
+            and launches == ldpc.decoder_passes() * screen_launches and finite
             and rec["ts_bytes"] > 1000):
         raise AssertionError(f"flagship receive failed: {rec}")
 
@@ -553,6 +646,7 @@ def phase_receive(report, signal):
     log(f"phase 3 timing ({report['device']['smi']}), 8 frames / "
         f"{llr.shape[0]} codewords: " + ", ".join(
             f"{k} {v:.3f}" for k, v in tm["stages_ms"].items())
+        + f", packing none (the decoder writes the BB bytes)"
         + f"; device pipeline {dev_s * 1e3:.2f} ms = "
         f"{timing['device_msps']:.1f} Msps; receive_plane "
         f"{timing['receive_plane_msps']:.1f} Msps (host tail "
@@ -852,8 +946,9 @@ def phase_stream(report, sig):
                         "superframe, whole")
     if abs(stats.cfo_hz - 31e3) >= 500:
         problems.append("CFO off by 500 Hz or more")
-    if launches != n_batches or screen_launches != n_batches:
-        problems.append("not one decoder launch a batch")
+    if (launches != ldpc.decoder_passes() * n_batches
+            or screen_launches != n_batches):
+        problems.append("not one decoder call a batch")
     if fe_err >= 2e-5:
         problems.append("front end on the card differs from the CPU")
     if card_p1[0] != cpu_p1[0] or abs(card_p1[1] - cpu_p1[1]) >= 1e-3 \
@@ -911,21 +1006,20 @@ def time_frame_batch(rx, frames):
     (timing, the host batch, the device batch, its LLRs)."""
     import numpy as np
     import torch
-    from sdr_receiver_dvb_t2_tpu_torch.ops import bch_ops, rx_chain
+    from sdr_receiver_dvb_t2_tpu_torch.ops import rx_chain
     batch = np.concatenate([frames] * (8 // len(frames)))
     dev_batch = torch.from_numpy(batch).to(DEVICE)
     plan, consts = rx.plan, rx.consts
     eq, diag = rx_chain.frames_to_eq(dev_batch, plan, consts)
     csi = diag.get("csi")
     llr, _ = rx_chain.packed_to_llr(eq, plan, consts, csi=csi)
-    hard = rx.decoder(llr)[0]
+    # no packing stage: the decoder kernel writes the BB bytes
     stages = dict(
         demod_eq_ms=cuda_ms(lambda: rx_chain.frames_to_eq(dev_batch, plan,
                                                           consts)),
         demap_ms=cuda_ms(lambda: rx_chain.packed_to_llr(eq, plan, consts,
                                                         csi=csi)),
-        ldpc_bch_kernel_ms=cuda_ms(lambda: rx.decoder(llr)),
-        pack_ms=cuda_ms(lambda: bch_ops.pack_bits(hard[:, :rx.plp.n_bch])))
+        ldpc_bch_kernel_ms=cuda_ms(lambda: rx.decoder(llr)))
 
     def device_batch():
         out, done = rx.receive_plane_async(*rx.compute_plane(dev_batch))
@@ -957,7 +1051,7 @@ def time_frame_batch(rx, frames):
 def phase_frame_batch(report, key, label, config, signal):
     """Phases 6-7: two full-width frames of an SFN or MISO configuration
     through ``TorchReceiver`` on the card (every codeword clean, the TS
-    exact, one launch of each kernel), one frame on the card against the
+    exact, one call of the kernels), one frame on the card against the
     CPU, and an 8-frame batch timed."""
     import numpy as np
     from sdr_receiver_dvb_t2_tpu_torch.models.receiver import (
@@ -1015,6 +1109,7 @@ def phase_frame_batch(report, key, label, config, signal):
     log(f"phase {label} timing ({smi}), 8 frames / {tm['batch_codewords']} "
         f"codewords (ldpc_ok {tm['ldpc_ok']}, bch_clean {tm['bch_clean']}): "
         + ", ".join(f"{k} {v:.3f}" for k, v in tm["stages_ms"].items())
+        + ", packing none (the decoder writes the BB bytes)"
         + f"; device batch {tm['device_batch_ms']:.2f} ms = "
         f"{tm['device_msps']:.1f} Msps; peak device memory "
         f"{tm['peak_memory_bytes']} B, of which "
@@ -1027,8 +1122,8 @@ def phase_frame_batch(report, key, label, config, signal):
         problems.append("TS not a run of the transmitted stream")
     if not finite:
         problems.append("diagnostics not finite")
-    if launches != 1 or screen_launches != 1:
-        problems.append("not one launch of each kernel")
+    if launches != ldpc.decoder_passes() or screen_launches != 1:
+        problems.append("not one call of the kernels")
     if cvc["plane_rel_db"] >= PLANE_REL_DB_MAX:
         problems.append("equalized plane on the card differs from the CPU")
     if not mode.miso and not (
@@ -1046,7 +1141,7 @@ def phase_sfn_stream(report):
     """Phase 8: the 2K GI 1/8 PP7 capture of tests/_port_capture.py (10
     Msps u8, CFO +31 kHz, SRO +19 ppm, 26 dB) through StreamingReceiver on
     the card, one frame a batch: locked with the SFN plan, every frame
-    decoded, the TS exact, one decoder launch a batch; the first-path
+    decoded, the TS exact, one decoder call a batch; the first-path
     timing loop's move after each batch is reported."""
     from sdr_receiver_dvb_t2_tpu_torch.io import sinks, sources
     from sdr_receiver_dvb_t2_tpu_torch.ops import ldpc
@@ -1118,8 +1213,9 @@ def phase_sfn_stream(report):
         problems.append("not locked with the SFN plan")
     if stats.frames < 6 or stats.ldpc_failures or not rec["ts_exact"]:
         problems.append("frames lost, failed codewords or TS not exact")
-    if launches != len(batches) or screen_launches != len(batches):
-        problems.append("not one decoder launch a batch")
+    if (launches != ldpc.decoder_passes() * len(batches)
+            or screen_launches != len(batches)):
+        problems.append("not one decoder call a batch")
     if any(abs(n) > 24 for n in rec["cir_nudges"]):
         problems.append("a first-path move beyond the loop's clamp")
     if problems:
@@ -1286,12 +1382,16 @@ class _PodProbe:
 def pod_stage_times(rx, buf, args, reps=5):
     """CUDA-event ms of one pod step's stages on ``buf`` (the staging
     buffer [C, n_time, win], pinned) with the step's bases ``args``: the
-    H2D copy, the front end, demod + equalize, demap, the kernels and
-    packing, and the whole step's device work (plane and FEC, with the
-    copies back)."""
+    H2D copy, the front end, demod + equalize, demap, the kernels (no
+    packing: the decoder writes the BB bytes), the call without the
+    screen and the screen's product in torch.matmul, and the whole step's
+    device work (plane and FEC, with the copies back).  First holds the
+    step's LDPC call against the twin (bytes, ok, iters, clean exact;
+    raises on a difference) with the grid's segments and with one
+    segment a shard."""
     import numpy as np
     import torch
-    from sdr_receiver_dvb_t2_tpu_torch.ops import bch_ops, rx_chain
+    from sdr_receiver_dvb_t2_tpu_torch.ops import ldpc, rx_chain
     from sdr_receiver_dvb_t2_tpu_torch.parallel import sharding
     idx0, frac0, phase0, freq, step = args
     dev = rx.mesh.devices[0][0]
@@ -1311,9 +1411,27 @@ def pod_stage_times(rx, buf, args, reps=5):
     eq, diag = rx_chain.frames_to_eq(frames, plan, consts)
     csi = diag.get("csi")
     llr, _ = rx_chain.packed_to_llr(eq, plan, consts, csi=csi)
-    dec = rx._decoder(rx.plps[0].plp)
-    hard = dec(llr)[0]
-    n_bch = rx.plps[0].plp.n_bch
+    plp = rx.plps[0].plp
+    dec = rx._decoder(plp)
+    dec_bare = ldpc.LayeredDecoder(plp.ldpc_table_name,
+                                   max_iters=dec.max_iters)
+    segments = rx.fec_segments(n_ch, n_ch * nt)
+    # the step's call at the pod's sizes against the twin: with this
+    # grid's segments (one a grid cell), and with one segment a shard, as
+    # a grid of a cell a shard would call it (tiles of 128 + 74 at 202)
+    parity, (packed, ok, iters, _), _ = check_kernel_against_twin(
+        llr, plp, max_iters=dec.max_iters, segments=segments)
+    per_shard, _, _ = check_kernel_against_twin(
+        llr, plp, max_iters=dec.max_iters,
+        segments=[int(llr.shape[0]) // (n_ch * nt)] * (n_ch * nt))
+    h = torch.from_numpy(dec.bch_h).to(dev)
+    hard_f = unpack_bits(packed).float()
+    call_ms, bare_ms, screen_ms, _, _ = call_less_call_without(
+        lambda: dec(llr, segments=segments),
+        lambda: dec_bare(llr, segments=segments), reps)
+    whole, screen = kernel_bounds(
+        dec.plan, int(llr.shape[0]),
+        tile_sweeps(ok, iters, dec.max_iters, segments), h.shape[1])
     return dict(
         h2d_copy_ms=cuda_ms(lambda: buf.to(dev, non_blocking=True), reps),
         front_end_ms=cuda_ms(lambda: sharding.front_end(*fe_args), reps),
@@ -1321,11 +1439,14 @@ def pod_stage_times(rx, buf, args, reps=5):
                                                           consts), reps),
         demap_ms=cuda_ms(lambda: rx_chain.packed_to_llr(eq, plan, consts,
                                                         csi=csi), reps),
-        ldpc_bch_kernel_ms=cuda_ms(lambda: dec(llr), reps),
-        pack_ms=cuda_ms(lambda: bch_ops.pack_bits(hard[:, :n_bch]), reps),
+        ldpc_bch_kernel_ms=call_ms, ldpc_without_screen_ms=bare_ms,
+        screen_ms=screen_ms,
+        screen_matmul_ms=cuda_ms(lambda: torch.matmul(hard_f, h), reps),
+        ldpc_bch_bound_ms=whole["bound_ms"],
+        screen_bound_ms=screen["bound_ms"],
         device_step_ms=cuda_ms(lambda: rx.fec_step_async(
             rx.plane_step_windows(buf, *args), 0), reps),
-        codewords=int(llr.shape[0]))
+        codewords=int(llr.shape[0]), twin=parity, twin_per_shard=per_shard)
 
 
 def pod_step_at(rx, buf, args, n_ch, reps=3):
@@ -1461,12 +1582,20 @@ def phase_pod(report, sig, paths):
                                          / r["device_step_ms"])
         r["channels_realtime_host_step"] = (
             n_ch * frame_ms / float(np.median(r["host_step_ms"])))
+        segs = [r[k]["segments"] for k in ("twin", "twin_per_shard")]
         log(f"phase 9 stages at {n_ch} channels ({r['codewords']} "
-            f"codewords; CUDA events, {smi}): " + ", ".join(
+            f"codewords; the call's bytes, ok, iters and clean equal to the "
+            f"twin's over the grid's {len(segs[0])} segments of "
+            f"{segs[0][0]} and over {len(segs[1])} of {segs[1][0]}, one a "
+            f"shard; CUDA events, {smi}): " + ", ".join(
                 f"{k} {r[k]:.3f}" for k in (
                     "h2d_copy_ms", "front_end_ms", "demod_eq_ms",
-                    "demap_ms", "ldpc_bch_kernel_ms", "pack_ms",
-                    "device_step_ms"))
+                    "demap_ms", "ldpc_bch_kernel_ms", "device_step_ms"))
+            + f"; packing none (the decoder writes the BB bytes); the "
+            f"call's bound {r['ldpc_bch_bound_ms']:.4f} ms, without the "
+            f"screen {r['ldpc_without_screen_ms']:.3f} ms, so the screen "
+            f"{r['screen_ms']:.3f} ms (bound {r['screen_bound_ms']:.4f} ms; "
+            f"torch.matmul {r['screen_matmul_ms']:.3f} ms)"
             + f"; host-clock step {[round(v, 1) for v in r['host_step_ms']]}"
             f" ms; peak device memory {r['peak_memory_bytes']} B; channels "
             f"in real time: device {r['channels_realtime_device']:.1f}, "
@@ -1490,8 +1619,9 @@ def phase_pod(report, sig, paths):
             problems.append(f"ch{c}: TS not every superframe whole")
         if abs(d["cfo_hz_estimate"] - d["cfo_hz"]) >= POD_CFO_MAX_ERR_HZ:
             problems.append(f"ch{c}: CFO off by {POD_CFO_MAX_ERR_HZ} Hz")
-    if launches != n_steps or screen_launches != n_steps:
-        problems.append("not one launch of each kernel a step")
+    if (launches != ldpc.decoder_passes() * n_steps
+            or screen_launches != n_steps):
+        problems.append("not one call of the kernels a step")
     if any(r["ldpc_ok"] != r["codewords"] for r in cap.values()):
         problems.append("the repeated steps did not decode")
     if problems:
@@ -1571,7 +1701,7 @@ def phase_pod_halo(report):
         f"{rec['equal_to_cpu']}, decoder launches {launches}, "
         f"{ms:.1f} ms (first call)")
     if not (rec["ldpc_failures"] == 0 and all(ts_ok) and rec["equal_to_cpu"]
-            and launches == screens == 1):
+            and launches == ldpc.decoder_passes() and screens == 1):
         raise AssertionError(f"phase 9 contiguous step: {rec}")
 
 
@@ -1724,6 +1854,7 @@ def phase_pod_ranks(report, sig, cap_path):
     import numpy as np
     import torch
     from sdr_receiver_dvb_t2_tpu_torch.io.native import NativeBBFrameParser
+    from sdr_receiver_dvb_t2_tpu_torch.ops import ldpc
     from sdr_receiver_dvb_t2_tpu_torch.parallel import sharding
     smi = report["device"]["smi"]
     _, plp = flagship_config()
@@ -1819,75 +1950,145 @@ def phase_pod_ranks(report, sig, cap_path):
     if not (equal and all(ts_ok)
             and rec["ldpc_failures"] == 0
             and all(d["stat_ldpc_failures"] == 0 for d in got)
-            and all(a == b == 1 for a, b in launches)):
+            and all(a == ldpc.decoder_passes() and b == 1
+                    for a, b in launches)):
         raise AssertionError(f"phase 10: {rec}")
     for p in [cap_path, *outs, store]:
         Path(p).unlink(missing_ok=True)
 
 
+def call_less_call_without(call, bare, reps):
+    """CUDA-event ms of the LDPC call and of the call without the screen,
+    in turns (call, without, without, call; three rounds) so that both see
+    the same card state: (call ms, without ms, the screen's ms as the
+    median of the rounds' differences, the call's runs, the runs
+    without)."""
+    import numpy as np
+    runs, bare_runs = [], []
+    for _ in range(3):
+        runs.append(cuda_ms(call, reps))
+        bare_runs += [cuda_ms(bare, reps), cuda_ms(bare, reps)]
+        runs.append(cuda_ms(call, reps))
+    return (float(np.mean(runs)), float(np.mean(bare_runs)),
+            float(np.median(np.subtract(runs, bare_runs))), runs, bare_runs)
+
+
+def kernel_device_ms(fn, reps=10):
+    """Device time of each of the LDPC call's kernels in torch.profiler's
+    CUDA trace of reps calls of fn(): {kernel: dict(ms=total ms,
+    launches=count)}; None where this torch cannot trace the card.  The
+    trace can miss launches (on the H100: 36 or 37 of 40), so the count
+    is what it holds."""
+    from torch.profiler import ProfilerActivity, profile, supported_activities
+    if ProfilerActivity.CUDA not in supported_activities():
+        return None
+    fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        sync()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = getattr(e, "cuda_time_total", 0)
+        for name in ("ldpc_layered_kernel", "bch_screen_kernel"):
+            if name in e.key and us:
+                o = out.setdefault(name, dict(ms=0.0, launches=0))
+                o["ms"] += us / 1e3
+                o["launches"] += e.count
+    return out
+
+
 def kernel_bounds(plan, w, sweeps, n_syn):
     """Least times (ms) the card could take for the decoder with its screen
-    and for the screen alone, from this run's sizes and sweeps: each input
-    read once and each output written once at the HBM rate, against the
-    operations at the 32-bit rate."""
+    and for the screen alone, from this run's sizes and sweeps (those the
+    tile contract runs, tile_sweeps): each input read once and each output
+    written once at the HBM rate, against the decoder's operations at the
+    32-bit rate.  The screen's AND-popcounts run on the tensor cores (mma
+    .b1 .and.popc), whose 1-bit rate the data sheet does not give; they are
+    counted, not timed, so the screen is bound by its bytes."""
     from sdr_receiver_dvb_t2_tpu_torch.ops import ldpc
     edges = plan.q * (plan.cnl + 2) * ldpc.M
-    words = -(-plan.k // 32)
-    h_bytes = n_syn * words * 4                       # packed H, read once
-    screen_ops = 2 * w * n_syn * words                # and + popcount a word
-    whole = dict(bytes=w * (plan.n + plan.k + 6) + h_bytes,
-                 ops=OPS_PER_EDGE_SWEEP * edges * sweeps + screen_ops)
-    # the screen alone: packed hard bits and H in, one flag a codeword out
-    screen = dict(bytes=w * words * 4 + h_bytes + w, ops=screen_ops)
+    h_bytes = n_syn * -(-plan.k // 8)                 # H as bytes, read once
+    # LLRs in; BB bytes, ok (1), iters (4) and clean (1) out
+    whole = dict(bytes=w * (plan.n + plan.k // 8 + 6) + h_bytes,
+                 ops=OPS_PER_EDGE_SWEEP * edges * sweeps)
+    # the screen alone: the BB bytes and H in, one flag a codeword out;
+    # an AND and a popcount a bit pair
+    screen = dict(bytes=w * plan.k // 8 + h_bytes + w,
+                  bit_ops=2 * w * n_syn * plan.k)
     for b in (whole, screen):
         b["bytes_ms"] = b["bytes"] / HBM_BYTES_PER_S * 1e3
-        b["ops_ms"] = b["ops"] / SCALAR_OPS_PER_S * 1e3
-        b["bound_ms"] = max(b["bytes_ms"], b["ops_ms"])
-        b["bound_by"] = ("bytes" if b["bytes_ms"] >= b["ops_ms"]
+    whole["ops_ms"] = whole["ops"] / SCALAR_OPS_PER_S * 1e3
+    whole["bound_ms"] = max(whole["bytes_ms"], whole["ops_ms"])
+    whole["bound_by"] = ("bytes" if whole["bytes_ms"] >= whole["ops_ms"]
                          else "operations")
+    screen.update(ops_ms=None, bound_ms=screen["bytes_ms"], bound_by="bytes")
     return whole, screen
 
 
 def time_kernels(llr, plp, label):
     """Parity with the twin, then the times of one load [W, N]: the whole
-    call, the call without the screen, the twin, the screen's plain version
-    and its library product."""
+    call, the call without the screen (the screen's time is the
+    difference), the twin, the screen's plain version and its library
+    product, and each kernel's device time in torch.profiler's trace
+    (which must hold whole calls where torch can trace the card)."""
     import torch
     from sdr_receiver_dvb_t2_tpu_torch.ops import bch_ops, ldpc
-    parity, got = check_kernel_against_twin(llr, plp)
+    parity, got, _ = check_kernel_against_twin(llr, plp)
     h = bch_ops._h_matrix(plp.k_bch, plp.bch_m, plp.bch_t)
     name = plp.ldpc_table_name
     dec = ldpc.LayeredDecoder(name, bch_h=h)
     dec_bare = ldpc.LayeredDecoder(name, bch_h=None)
-    # in turns, so that both see the same card state
-    ms_a, bare_a = cuda_ms(lambda: dec(llr), reps=10), cuda_ms(
-        lambda: dec_bare(llr), reps=10)
-    bare_b, ms_b = cuda_ms(lambda: dec_bare(llr), reps=10), cuda_ms(
-        lambda: dec(llr), reps=10)
-    ms, bare_ms = (ms_a + ms_b) / 2, (bare_a + bare_b) / 2
-    plain_ms = cuda_ms(lambda: ldpc.decode_plain(llr, name, 15, h,
-                                                 exit_tile=1), reps=1)
-    hard = got[0]
+    ms, bare_ms, screen_ms, runs, bare_runs = call_less_call_without(
+        lambda: dec(llr), lambda: dec_bare(llr), reps=10)
+    plain_ms = cuda_ms(lambda: ldpc.decode_plain(
+        llr, name, 15, h, exit_tile=ldpc.TILE), reps=1)
+    hard = unpack_bits(got[0])
     screen_plain_ms = cuda_ms(lambda: bch_ops.syndrome_flags(hard, h), reps=3)
-    hard_f = hard[:, :h.shape[0]].float()
+    hard_f = hard.float()
     h_t = torch.from_numpy(h).to(DEVICE)
     library_ms = cuda_ms(lambda: torch.matmul(hard_f, h_t), reps=10)
     clean_err = int((got[3].int() - bch_ops.syndrome_flags(hard, h).int())
                     .abs().max())
-    w, sweeps = int(llr.shape[0]), int(got[2].sum())   # iters sweeps each
+    w, sweeps = int(llr.shape[0]), parity["sweeps"]
     whole, screen = kernel_bounds(ldpc.get_plan(name), w, sweeps, h.shape[1])
+    traced = kernel_device_ms(lambda: dec(llr), reps=10)
+    if traced is not None:
+        # the trace can miss launches: the screen's time a call is its time
+        # a launch (one a call); the decoder's a call only from a trace that
+        # holds all its launches
+        per_call = {"ldpc_layered_kernel": ldpc.decoder_passes(),
+                    "bch_screen_kernel": 1}
+        if set(traced) != set(per_call):
+            raise AssertionError(f"phase 5 {label}: torch.profiler's trace "
+                                 f"lacks a kernel: {traced}")
+        for k, v in traced.items():
+            v["expected"] = per_call[k] * 10
+            v["ms_per_call"] = (
+                v["ms"] / v["launches"] * per_call[k]
+                if per_call[k] == 1 or v["launches"] == v["expected"]
+                else None)
     res = dict(label=label, parity=parity, n_cw=w, sweeps=sweeps, ms=ms,
-               ms_runs=[ms_a, ms_b], without_screen_ms=bare_ms,
-               without_screen_runs=[bare_a, bare_b], screen_ms=ms - bare_ms,
+               traced=traced, ms_runs=runs, without_screen_ms=bare_ms,
+               without_screen_runs=bare_runs, screen_ms=screen_ms,
                plain_ms=plain_ms, screen_plain_ms=screen_plain_ms,
                library_ms=library_ms, screen_max_abs_err=clean_err,
                bound=whole, screen_bound=screen)
     log(f"phase 5 {label}, W={w}, {sweeps} sweeps, bit-exact: call {ms:.3f} "
         f"ms (bound {whole['bound_ms']:.4f} ms by {whole['bound_by']}), "
         f"without the screen {bare_ms:.3f} ms, so the screen "
-        f"{ms - bare_ms:.3f} ms (bound {screen['bound_ms']:.4f} ms by "
-        f"{screen['bound_by']}; torch.matmul {library_ms:.3f} ms; plain "
-        f"{screen_plain_ms:.2f} ms); twin {plain_ms:.1f} ms")
+        f"{screen_ms:.4f} ms (median of {len(runs)} rounds' differences "
+        f"{[round(a - b, 4) for a, b in zip(runs, bare_runs)]}; bound "
+        f"{screen['bound_ms']:.4f} ms by {screen['bound_by']}; torch.matmul "
+        f"{library_ms:.3f} ms; plain {screen_plain_ms:.2f} ms); twin "
+        f"{plain_ms:.1f} ms; traced a call: "
+        + (", ".join(f"{k} {v['ms_per_call']} ms ({v['launches']} of its "
+                     f"{v['expected']} launches in the trace of 10 calls)"
+                     for k, v in traced.items()) if traced is not None
+           else "not measured (torch cannot trace the card)"))
     return res
 
 
@@ -1919,6 +2120,10 @@ def phase_kernel_table(report, llr):
     def by_path(count):
         return {name: report[key][count] for name, key in paths.items()}
 
+    def traced(r, kernel, key="ms_per_call"):
+        return (None if r["traced"] is None
+                else r["traced"][kernel][key])
+
     def lite_rows(screen):
         return {t: dict(n_cw=r["n_cw"], sweeps=r["sweeps"],
                         ms=r["screen_ms"] if screen else r["ms"],
@@ -1927,6 +2132,8 @@ def phase_kernel_table(report, llr):
                         bound_ms=r["screen_bound" if screen
                                    else "bound"]["bound_ms"],
                         library_ms=r["library_ms"] if screen else None,
+                        traced_ms=traced(r, "bch_screen_kernel" if screen
+                                         else "ldpc_layered_kernel"),
                         max_abs_err=(r["screen_max_abs_err"] if screen
                                      else r["parity"]["max_abs_err"]))
                 for t, r in lite.items()}
@@ -1938,7 +2145,15 @@ def phase_kernel_table(report, llr):
              max_abs_err=main["parity"]["max_abs_err"], ms=main["ms"],
              plain_ms=main["plain_ms"], bound_ms=main["bound"]["bound_ms"],
              bound_by=main["bound"]["bound_by"], library_ms=None,
-             note="decoder kernel and screen kernel, one call; ms is both"),
+             traced_ms=traced(main, "ldpc_layered_kernel"),
+             traced_launches=traced(main, "ldpc_layered_kernel",
+                                    "launches"),
+             note="decoder kernel and screen kernel, one call; ms is both "
+                  "(CUDA events); launches counts the decoder's passes, "
+                  "each a launch; traced_ms is the decoder kernel's device "
+                  "time a call in torch.profiler's trace of 10 calls (null "
+                  "where the trace missed a launch), traced_launches the "
+                  "launches it holds"),
         dict(name="bch_screen", route="cuda", source=source,
              replaces="sdr_receiver_dvb_t2_tpu/ops/ldpc_pallas.py:369",
              launches=strm["screen_launches"],
@@ -1949,8 +2164,13 @@ def phase_kernel_table(report, llr):
              bound_ms=main["screen_bound"]["bound_ms"],
              bound_by=main["screen_bound"]["bound_by"],
              library_ms=main["library_ms"],
+             traced_ms=traced(main, "bch_screen_kernel"),
+             traced_launches=traced(main, "bch_screen_kernel", "launches"),
              note="second kernel of the same call; ms is the call's time "
-                  "less its time without the screen"),
+                  "less its time without the screen (CUDA events); "
+                  "traced_ms is its device time a launch (one a call) in "
+                  "torch.profiler's trace of 10 calls; "
+                  "bound by its bytes (no published 1-bit tensor rate)"),
     ]
     report["kernel_table"] = dict(rows=rows, flagship=main, mixed=mixed,
                                   lite=lite)

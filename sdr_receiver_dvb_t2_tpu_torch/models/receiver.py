@@ -107,7 +107,9 @@ def host_copies(out: dict, side) -> tuple:
     blocking: on ``side`` (a CUDA stream, after the work already queued on
     the current stream) into pinned host buffers.  Returns (host tensors,
     an event to wait for, or None where ``side`` is None and the tensors
-    are on the CPU already)."""
+    are on the CPU already).  A view into a larger tensor (the decoder's
+    bytes, a narrow view of rows padded to 16 bytes) is copied as that
+    whole tensor, in one copy, and its host tensor is the same view."""
     if side is None:
         return out, None
     main = torch.cuda.current_stream(side.device)
@@ -115,9 +117,12 @@ def host_copies(out: dict, side) -> tuple:
     host = {}
     with torch.cuda.stream(side):
         for k, v in out.items():
-            v.record_stream(side)
-            host[k] = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
-            host[k].copy_(v, non_blocking=True)
+            whole = v if v.is_contiguous() else v._base
+            whole.record_stream(side)
+            h = torch.empty(whole.shape, dtype=v.dtype, pin_memory=True)
+            h.copy_(whole, non_blocking=True)
+            host[k] = h if whole is v else h.as_strided(
+                v.shape, v.stride(), v.storage_offset())
     done = torch.cuda.Event()
     done.record(side)
     return host, done
@@ -273,8 +278,8 @@ class TorchReceiver:
         return self.finish(self.receive_plane_async(eq, diags))
 
     def receive_plane_async(self, eq, diags):
-        """Device half: enqueue demap + FEC + bit packing, and start the
-        device-to-host copies without blocking; finish() completes them.
+        """Device half: enqueue demap and FEC, and start the device-to-host
+        copies without blocking; finish() completes them.
 
         No padding of the codeword count is needed: the kernel gives each
         codeword its own thread block (the TPU kernel took 128-codeword
@@ -283,11 +288,10 @@ class TorchReceiver:
         llr, snr = rx_chain.packed_to_llr(eq, self.plan, self.consts,
                                           csi=diags.get("csi"))
         diags = {k: v for k, v in diags.items() if k != "csi"}
-        hard, ok, iters, clean = self.decoder(llr)
-        # pack to bytes on the device: the copy to the host shrinks 8x and
-        # the host receives BB-frame bytes (n_bch, so that the rare dirty
-        # codewords can be BCH-corrected without another round trip)
-        packed = bch_ops.pack_bits(hard[:, :self.plp.n_bch])
+        # the decoder writes the BB-frame bytes (n_bch bits, so that the
+        # rare dirty codewords can be BCH-corrected without another round
+        # trip); one Pallas call in the JAX receiver, so one segment
+        packed, ok, iters, clean = self.decoder(llr)
         out = dict(packed=packed, clean=clean, ok=ok, iters=iters,
                    snr_db=snr, **diags)
         return host_copies(out, self._copy_stream)

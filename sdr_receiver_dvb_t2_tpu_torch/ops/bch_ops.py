@@ -2,9 +2,9 @@
 
 The all-but-certain case after a successful LDPC decode is "no residual
 errors"; checking that is a GF(2) product of the codeword with the
-parity-check matrix.  On the GPU that product is fused into the LDPC
-kernel's epilogue (ops/csrc/ldpc_layered.cu); :func:`syndrome_flags` is its
-plain version.  Only flagged codewords take the host Berlekamp-Massey path
+parity-check matrix.  On the GPU that product is the screen kernel behind
+the LDPC decoder, over the bytes the decoder writes
+(ops/csrc/ldpc_layered.cu); :func:`syndrome_flags` is its plain version.  Only flagged codewords take the host Berlekamp-Massey path
 (params/bch.py).
 """
 from __future__ import annotations
@@ -39,7 +39,9 @@ _BIT_WEIGHTS = (128, 64, 32, 16, 8, 4, 2, 1)
 def pack_bits(bits: torch.Tensor) -> torch.Tensor:
     """[W, n] hard bits (0/1 int8) -> [W, n//8] uint8, MSB first per byte
     (np.packbits convention), on the bits' device.  n must be a multiple
-    of 8 (every DVB-T2 K_bch/N_bch is)."""
+    of 8 (every DVB-T2 K_bch/N_bch is).  The plain version of the LDPC
+    kernel's byte epilogue (ops/csrc/ldpc_layered.cu), which writes these
+    bytes on the card; the decoder's CPU path packs its twin's bits here."""
     w, n = bits.shape
     assert n % 8 == 0, n
     weights = torch.tensor(_BIT_WEIGHTS, dtype=torch.int32,

@@ -3,12 +3,11 @@
 //
 // Replaces the TPU kernel sdr_receiver_dvb_t2_tpu/ops/ldpc_pallas.py:169
 // (make_pallas_decoder -> kernel, pallas_call at :420) with its fused BCH
-// epilogue (:369-382) and computes what they compute, with one difference
-// in the early exit: the decoder leaves the sweep loop per codeword instead
-// of per 128-codeword tile (see ops/ldpc.py).
+// epilogue (:369-382) and computes what they compute, the early exit
+// included (see "Tile exit" below and ops/ldpc.py).
 //
 // What bounds it.  The function's own bytes are small (64,800 LLR bytes in
-// and 43,200 hard bytes out per NORMAL codeword, ~0.05 ms for 1616
+// and 5,400 BB-frame bytes out per NORMAL codeword, ~0.03 ms for 1616
 // codewords at 3.35 TB/s).  Its work is 32-bit integer operations, about 34
 // instructions per edge and sweep as compiled, most of them compares,
 // selects and min/max, which the SM executes at 64 lanes a clock (half its
@@ -45,9 +44,45 @@
 //    rows the block meets only where the row shares a group with a row
 //    since the last meeting (ops/ldpc.py _row_info): 63 barriers a sweep
 //    for NORMAL r2/3 where one per pass and repeat would be 240;
-//  * the BCH screen is a second kernel over the packed hard bits: a tile of
-//    64 codewords by 32 syndrome rows per block, xor-accumulating a & h, so
-//    the packed matrix is read once per 64 codewords, not once per codeword.
+//  * the epilogue writes the hard bits once, as the BB frame's bytes (MSB
+//    first, np.packbits order) in rows padded to 16 bytes: the host needs
+//    those bytes, and the screen reads them as they are.
+//
+// Tile exit.  Pallas leaves its sweep loop when every codeword of its
+// 128-codeword tile is clean in the same sweep; until then the clean ones
+// sweep on, and that can change their bits (a sweep with no unsatisfied
+// check can end on bits that are no codeword).  Blocks cannot wait for
+// each other, so one call launches the decoder four times over the same
+// LLRs (the tiles count from the start of each segment, one segment per
+// Pallas call the call stands for):
+//  0. every codeword sweeps until its first clean sweep (or max_iters) and
+//     writes its outputs and the sweeps it ran;
+//  1. T0 = the most sweeps in the tile.  A codeword that ran fewer decodes
+//     again from its LLRs for exactly T0 sweeps (the kernel is
+//     deterministic, so this is sweeping on) and writes its outputs of
+//     sweep T0.  An empty grid on the flagship load, where every codeword
+//     is clean at sweep 2;
+//  2. a tile is settled if T0 = max_iters or all of it is clean at T0.
+//     A codeword that was clean and is not at T0 unsettles its tile: then
+//     every codeword of the tile sweeps all max_iters and records which
+//     sweeps were clean (a 128-bit mask);
+//  3. an unsettled tile's exit T is the first sweep clean in all its
+//     masks (else max_iters), and each of its codewords decodes for T
+//     sweeps again and writes its outputs.
+// Passes 2 and 3 find no work on a settled tile and return at once.
+//
+// The BCH screen.  Syndrome bit (w, r) is the parity of popc(bytes[w] &
+// h[r]) over the row's 32-bit words; bit order inside a word does not
+// matter as long as H is packed in the same (ops/ldpc.py pack_bch_h).  On
+// the ALU that is one LOP3 (acc ^= a & h) a word pair, some 0.024 ms for
+// the flagship batch at 64 lanes a clock; the tensor cores' 1-bit product
+// (mma m16n8k256 .and.popc, which ptxas takes for sm_90a) sums 256 such
+// pairs of 16 codewords by 8 rows in one instruction, so the screen is
+// bound by moving its operands instead (PERF.md).  A block holds a tile of
+// 64 codewords by 32 syndrome rows; the two operands' word chunks come to
+// shared memory by cp.async (16 bytes a copy, two stages); the words of a
+// row are split over gridDim.z blocks so that the card is full (their
+// parities meet by atomicXor; the tile's last block writes the flags).
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <stdio.h>
@@ -59,6 +94,15 @@ constexpr int THREADS = 384;
 constexpr int NWARPS = THREADS / 32;
 constexpr int CLAMP = 56;
 constexpr unsigned KEY_NONE = 0x7fffffffu;  // key of a slot with no message
+constexpr int TILE = 128;  // codewords of a Pallas tile
+// the four launches of one call (see "Tile exit")
+enum Pass { PASS_FIRST = 0, PASS_TILE = 1, PASS_MASK = 2, PASS_FINAL = 3 };
+constexpr int MASK_WORDS = 4;  // clean-sweep mask: bit s = sweep s, bit 0 = set
+// the screen's tiles (its kernel below); the decoder's first pass zeroes
+// the screen's scratch, one SYN_WORDS row a codeword, one count a tile
+constexpr int SCR_TW = 64;     // codewords per screen block
+constexpr int SCR_TR = 32;     // syndrome rows per screen block
+constexpr int SYN_WORDS = 8;   // room for 256 syndrome rows
 
 template <bool WIDE> struct StateWord { using type = uint32_t; };
 template <> struct StateWord<true> { using type = unsigned long long; };
@@ -82,6 +126,38 @@ __device__ __forceinline__ int block_sum(int v, int* red) {
   for (int w = 0; w < NWARPS; ++w) total += red[w];
   __syncthreads();
   return total;
+}
+
+__device__ __forceinline__ int block_max(int v, int* red) {
+  v = __reduce_max_sync(0xffffffffu, v);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  int out = red[0];
+#pragma unroll
+  for (int w = 1; w < NWARPS; ++w) out = max(out, red[w]);
+  __syncthreads();
+  return out;
+}
+
+__device__ __forceinline__ unsigned block_and(unsigned v, int* red) {
+  v = __reduce_and_sync(0xffffffffu, v);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = (int)v;
+  __syncthreads();
+  unsigned out = (unsigned)red[0];
+#pragma unroll
+  for (int w = 1; w < NWARPS; ++w) out &= (unsigned)red[w];
+  __syncthreads();
+  return out;
+}
+
+// The MSB-first byte of eight hard bits: the sign bits of the posteriors
+// lo (bytes 0-3) and hi (bytes 4-7); the first posterior is the MSB.
+__device__ __forceinline__ unsigned msb_byte(unsigned lo, unsigned hi) {
+  // sign bits at 0, 8, 16, 24; the product gathers them, first one highest,
+  // at bits 24-27 (no two partial products meet, so nothing carries)
+  const unsigned a = (((lo >> 7) & 0x01010101u) * 0x08040201u) >> 24;
+  const unsigned b = (((hi >> 7) & 0x01010101u) * 0x08040201u) >> 24;
+  return a << 4 | b;
 }
 
 // clip(a + b, -127, 127); the add and the first clip are one instruction
@@ -135,14 +211,16 @@ __device__ __forceinline__ void take_min(int t, int slot, unsigned& k1,
 // of the slots a row has).  FULL: cnl == MAXC, so no slot is predicated.
 template <int MAXC, bool UNIFORM, bool FULL>
 __global__ void __launch_bounds__(THREADS, MAXC <= 9 ? 3 : 2)
-ldpc_layered_kernel(const int8_t* __restrict__ llr, int8_t* __restrict__ hard,
-                    uint32_t* __restrict__ hard_bits,
+ldpc_layered_kernel(const int8_t* __restrict__ llr,
+                    uint32_t* __restrict__ packed, int packed_words,
                     int8_t* __restrict__ ok_out,
                     int32_t* __restrict__ iters_out,
-                    int8_t* __restrict__ clean_out,
+                    int32_t* __restrict__ sweeps, uint32_t* __restrict__ masks,
+                    uint32_t* __restrict__ syn, uint32_t* __restrict__ done,
+                    const int32_t* __restrict__ seg, int n_seg,
                     const int2* __restrict__ slot_tab,
                     const int32_t* __restrict__ row_tab, int k, int q,
-                    int cnl_arg, int max_iters) {
+                    int cnl_arg, int max_iters, int pass) {
   constexpr bool WIDE = MAXC > 13;
   using Word = typename StateWord<WIDE>::type;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -161,6 +239,42 @@ ldpc_layered_kernel(const int8_t* __restrict__ llr, int8_t* __restrict__ hard,
   const int tid = threadIdx.x;
   const int m = tid;  // check lane
   const bool active = m < M;
+
+  // Which sweeps this launch runs (see "Tile exit"); a block without work
+  // returns before it loads anything.
+  int target = max_iters;
+  const bool record = pass == PASS_MASK;
+  if (pass != PASS_FIRST) {
+    // this codeword's tile [lo, hi): TILE codewords from the start of its
+    // segment (the last segment starting at or before cw)
+    int a = 0, b = n_seg;
+    while (b - a > 1) {
+      const int mid = (a + b) >> 1;
+      if (seg[mid] <= cw) a = mid; else b = mid;
+    }
+    const int lo = seg[a] + (cw - seg[a]) / TILE * TILE;
+    const int hi = min(lo + TILE, seg[a + 1]);
+    const int j = lo + tid;  // THREADS >= TILE: one codeword a thread
+    if (pass == PASS_TILE || pass == PASS_MASK) {
+      const int t0 = block_max(j < hi ? sweeps[j] : 0, red);
+      if (pass == PASS_TILE) {
+        if (sweeps[cw] == t0) return;  // its outputs are those of sweep T0
+        target = t0;
+      } else {
+        const int dirty = block_sum(j < hi && ok_out[j] == 0, red);
+        if (t0 == max_iters || dirty == 0) return;  // settled at T0
+      }
+    } else {  // PASS_FINAL
+      if ((masks[(size_t)cw * MASK_WORDS] & 1u) == 0) return;
+      target = max_iters;
+      for (int w = MASK_WORDS - 1; w >= 0; --w) {
+        unsigned all = block_and(
+            j < hi ? masks[(size_t)j * MASK_WORDS + w] : ~0u, red);
+        if (w == 0) all &= ~1u;
+        if (all) target = min(target, 32 * w + __ffs(all) - 1);
+      }
+    }
+  }
 
   // row tables, then the channel LLRs clamped below the weakest bit's
   // correction capacity
@@ -186,7 +300,7 @@ ldpc_layered_kernel(const int8_t* __restrict__ llr, int8_t* __restrict__ hard,
 
   int unsat = 0, first = 0;
   Word wnext = 0;
-  for (int it = 0; it < max_iters; ++it) {
+  for (int it = 0; it < target; ++it) {
     int my_unsat = 0;
     for (int i = 0; i < q; ++i) {
       const int info = rtab[i];
@@ -313,116 +427,176 @@ ldpc_layered_kernel(const int8_t* __restrict__ llr, int8_t* __restrict__ hard,
 #undef OLD_MSG
     }
     unsat = block_sum(my_unsat, red);
-    if (unsat == 0) {  // per-codeword early exit
-      first = it + 1;
-      break;
+    if (unsat == 0) {
+      if (first == 0) first = it + 1;
+      if (record && tid == 0)
+        masks[(size_t)cw * MASK_WORDS + ((it + 1) >> 5)] |= 1u << ((it + 1) & 31);
+      if (pass == PASS_FIRST) break;  // the first clean sweep
     }
+  }
+  if (record) {  // a mask pass writes no outputs
+    if (tid == 0) masks[(size_t)cw * MASK_WORDS] |= 1u;
+    return;
   }
 
-  // ---------------- epilogue: hard bits, as bytes and packed ----------------
-  // Four posteriors per thread and step: their sign bits become four hard
-  // bytes (one 32-bit store) and a nibble of the packed word, which eight
-  // neighbouring lanes put together.
-  const uint32_t* lam32 = reinterpret_cast<const uint32_t*>(lam);
-  uint32_t* hard32 = reinterpret_cast<uint32_t*>(hard + (size_t)cw * k);
-  const int k4 = k / 4;  // k is a multiple of 360
-  const int kw = (k + 31) / 32;
-  for (int base = 0; base < k4; base += THREADS) {
-    const int j = base + tid;
-    unsigned y = 0;
-    if (j < k4) {
-      y = (lam32[j] >> 7) & 0x01010101u;
-      hard32[j] = y;
+  // ---------------- epilogue: the BB frame's bytes ----------------
+  // Each thread writes whole 32-bit words of the padded row; a byte is the
+  // sign bits of eight posteriors (two 32-bit loads), past k/8 it is zero.
+  const int kb = k >> 3;  // k is a multiple of 360
+  uint32_t* row = packed + (size_t)cw * packed_words;
+  const uint2* lam8 = reinterpret_cast<const uint2*>(lam);
+  for (int j = tid; j < packed_words; j += THREADS) {
+    unsigned word = 0;
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      if (4 * j + b < kb) {
+        const uint2 v = lam8[4 * j + b];
+        word |= msb_byte(v.x, v.y) << (8 * b);
+      }
     }
-    unsigned nib = (((y * 0x01020408u) >> 24) & 0xFu) << (4 * (tid & 7));
-    nib |= __shfl_xor_sync(0xffffffffu, nib, 1);
-    nib |= __shfl_xor_sync(0xffffffffu, nib, 2);
-    nib |= __shfl_xor_sync(0xffffffffu, nib, 4);
-    if (hard_bits != nullptr && (tid & 7) == 0 && j < k4)
-      hard_bits[(size_t)cw * kw + (j >> 3)] = nib;
+    row[j] = word;
   }
   if (tid == 0) {
+    const int iters = unsat == 0 ? first : max_iters;
     ok_out[cw] = (int8_t)(unsat == 0);
-    iters_out[cw] = unsat == 0 ? first : max_iters;
-    clean_out[cw] = 1;  // until the screen finds a syndrome bit
+    iters_out[cw] = iters;
+    if (pass == PASS_FIRST) {
+      sweeps[cw] = iters;  // the sweeps it ran
+#pragma unroll
+      for (int w = 0; w < MASK_WORDS; ++w)
+        masks[(size_t)cw * MASK_WORDS + w] = 0;
+    }
+  }
+  if (pass == PASS_FIRST && syn != nullptr) {  // the screen's scratch
+    if (tid < SYN_WORDS) syn[(size_t)cw * SYN_WORDS + tid] = 0;
+    if (tid == 0 && cw % SCR_TW == 0) done[cw / SCR_TW] = 0;
   }
 }
 
 // ---------------------------------------------------------------------------
-// BCH screen: syndrome bit (w, r) = parity of popcount(bits[w] & h[r]).
-// The parity of a popcount is linear over xor, so a thread xor-accumulates
-// a & h words and takes one popcount at the end.  One block screens a tile
-// of 64 codewords against 32 syndrome rows; tiles of the two operands go
-// through shared memory in chunks of 64 words, the next chunk's loads in
-// flight in registers during the current chunk's products.
+// BCH screen over the byte rows: see "The BCH screen" above.  Block
+// (x, y, z): codewords [64 x, 64 x + 64) against syndrome rows
+// [32 y, 32 y + 32), over the word chunks z * per_split ... of the row.
+// Warp w takes codewords 16 w ... 16 w + 15 against all 32 rows: four
+// m16n8k256 products a 256-bit step.  The fragments (PTX ISA, mma
+// m16n8k256 .b1): lane = 4 g + t; A (row major, 16 x 256 bits) a0 = word
+// t of codeword g, a1 of codeword g + 8, a2 and a3 the same at word t + 4;
+// B (column major, 256 x 8) b0 = word t of syndrome row g, b1 word t + 4;
+// the s32 sums c0, c1 are codeword g against rows 2 t and 2 t + 1, c2, c3
+// codeword g + 8.  A word of a codeword meets the same word of H, so the
+// order of bits in a word is free.
 // ---------------------------------------------------------------------------
-constexpr int SCR_THREADS = 256;
-constexpr int SCR_TW = 64;   // codewords per block
-constexpr int SCR_TR = 32;   // syndrome rows per block
-constexpr int SCR_KC = 64;   // words per chunk
-constexpr int SCR_LD = SCR_KC + 4;  // row stride: 16-byte reads, no conflicts
+constexpr int SCR_THREADS = 2 * SCR_TW;  // one warp a 16-codeword slab
+constexpr int SCR_KC = 64;          // words per chunk
+constexpr int SCR_LD = SCR_KC + 4;  // row stride: fragment loads without conflicts
+constexpr int SCR_ROWS = SCR_TW + SCR_TR;
+constexpr int SCR_STAGE = SCR_ROWS * SCR_LD;  // words of one stage
+constexpr size_t SCR_SMEM = 2 * SCR_STAGE * sizeof(uint32_t);
+
+__device__ __forceinline__ void cp_async16(uint32_t* dst, const uint32_t* src,
+                                           bool valid) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  // src-size 0 fills the 16 bytes with zeros and reads nothing
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+// c += popc(a & b) over 256 bits, 16 codewords by 8 syndrome rows
+__device__ __forceinline__ void mma_and_popc(int (&c)[4], uint32_t a0,
+                                             uint32_t a1, uint32_t a2,
+                                             uint32_t a3, uint32_t b0,
+                                             uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
 
 __global__ void __launch_bounds__(SCR_THREADS)
 bch_screen_kernel(const uint32_t* __restrict__ bits,
                   const uint32_t* __restrict__ h, int8_t* __restrict__ clean_out,
-                  int W, int n_syn, int kw) {
-  __shared__ __align__(16) uint32_t sa[SCR_TW][SCR_LD];
-  __shared__ __align__(16) uint32_t sb[SCR_TR][SCR_LD];
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;  // codewords tx + 16c, rows ty + 16r
+                  uint32_t* __restrict__ syn, uint32_t* __restrict__ done,
+                  int W, int n_syn, int nw, int per_split) {
+  extern __shared__ __align__(16) uint32_t sbuf[];
+  __shared__ uint32_t odd_rows[SCR_TW];
+  __shared__ int last;
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int g = (tid & 31) >> 2, t = tid & 3;
   const int w0 = blockIdx.x * SCR_TW, r0 = blockIdx.y * SCR_TR;
-  const int col = tid & (SCR_KC - 1), row0 = tid / SCR_KC;
-  constexpr int ROWS_PER_PASS = SCR_THREADS / SCR_KC;  // 4
-  constexpr int NA = SCR_TW / ROWS_PER_PASS, NB = SCR_TR / ROWS_PER_PASS;
-  uint32_t ra[NA], rb[NB];
-  uint32_t acc[4][2] = {};
+  const int n_chunks = (nw + SCR_KC - 1) / SCR_KC;
+  const int c0 = blockIdx.z * per_split;
+  const int c1 = min(c0 + per_split, n_chunks);
+  if (tid < SCR_TW) odd_rows[tid] = 0;
 
-  auto fetch = [&](int k0) {
-    const int gk = k0 + col;
-#pragma unroll
-    for (int j = 0; j < NA; ++j) {
-      const int gw = w0 + row0 + ROWS_PER_PASS * j;
-      ra[j] = (gw < W && gk < kw) ? __ldg(bits + (size_t)gw * kw + gk) : 0u;
+  // one chunk: 96 rows of 16 16-byte pieces, twelve copies a thread
+  auto load_chunk = [&](int chunk, int stage) {
+    uint32_t* dst = sbuf + stage * SCR_STAGE;
+    for (int e = tid; e < SCR_ROWS * (SCR_KC / 4); e += SCR_THREADS) {
+      const int rr = e / (SCR_KC / 4), piece = e % (SCR_KC / 4);
+      const int word = chunk * SCR_KC + 4 * piece;
+      const bool is_cw = rr < SCR_TW;
+      const int gr = is_cw ? w0 + rr : r0 + rr - SCR_TW;
+      const bool valid = word < nw && (is_cw ? gr < W : gr < n_syn);
+      const uint32_t* src = (is_cw ? bits : h) +
+                            (valid ? (size_t)gr * nw + word : 0);
+      cp_async16(dst + rr * SCR_LD + 4 * piece, src, valid);
     }
-#pragma unroll
-    for (int j = 0; j < NB; ++j) {
-      const int gr = r0 + row0 + ROWS_PER_PASS * j;
-      rb[j] = (gr < n_syn && gk < kw) ? __ldg(h + (size_t)gr * kw + gk) : 0u;
-    }
+    asm volatile("cp.async.commit_group;\n" ::);
   };
 
-  fetch(0);
-  for (int k0 = 0; k0 < kw; k0 += SCR_KC) {
-#pragma unroll
-    for (int j = 0; j < NA; ++j) sa[row0 + ROWS_PER_PASS * j][col] = ra[j];
-#pragma unroll
-    for (int j = 0; j < NB; ++j) sb[row0 + ROWS_PER_PASS * j][col] = rb[j];
-    __syncthreads();
-    if (k0 + SCR_KC < kw) fetch(k0 + SCR_KC);
-#pragma unroll 4
-    for (int kk = 0; kk < SCR_KC; kk += 4) {
-      uint4 a[4], b[2];
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        a[c] = *reinterpret_cast<const uint4*>(&sa[tx + 16 * c][kk]);
-#pragma unroll
-      for (int r = 0; r < 2; ++r)
-        b[r] = *reinterpret_cast<const uint4*>(&sb[ty + 16 * r][kk]);
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-#pragma unroll
-        for (int r = 0; r < 2; ++r)
-          acc[c][r] ^= (a[c].x & b[r].x) ^ (a[c].y & b[r].y) ^
-                       (a[c].z & b[r].z) ^ (a[c].w & b[r].w);
+  int acc[SCR_TR / 8][4] = {};
+  if (c0 < c1) load_chunk(c0, 0);
+  for (int c = c0; c < c1; ++c) {
+    const int stage = (c - c0) & 1;
+    if (c + 1 < c1) {
+      load_chunk(c + 1, stage ^ 1);
+      asm volatile("cp.async.wait_group 1;\n" ::);
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::);
     }
     __syncthreads();
-  }
+    const uint32_t* sa = sbuf + stage * SCR_STAGE + (16 * warp + g) * SCR_LD + t;
+    const uint32_t* sb = sbuf + stage * SCR_STAGE + (SCR_TW + g) * SCR_LD + t;
 #pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    const int gw = w0 + tx + 16 * c;
-    const int dirty = (__popc(acc[c][0]) | __popc(acc[c][1])) & 1;
-    // every writer stores the same 0 over the decoder's 1
-    if (dirty && gw < W) clean_out[gw] = 0;
+    for (int kk = 0; kk < SCR_KC; kk += 8) {
+      const uint32_t a0 = sa[kk], a1 = sa[8 * SCR_LD + kk];
+      const uint32_t a2 = sa[kk + 4], a3 = sa[8 * SCR_LD + kk + 4];
+#pragma unroll
+      for (int j = 0; j < SCR_TR / 8; ++j)
+        mma_and_popc(acc[j], a0, a1, a2, a3, sb[8 * j * SCR_LD + kk],
+                     sb[8 * j * SCR_LD + kk + 4]);
+    }
+    __syncthreads();  // the stage is refilled next
+  }
+
+  // this block's parities, one bit a syndrome row, into the codeword's word
+  // of rows [r0, r0 + 32): xor-ed with the other splits' in device memory
+  unsigned lo = 0, hi = 0;
+#pragma unroll
+  for (int j = 0; j < SCR_TR / 8; ++j) {
+    const int b = 8 * j + 2 * t;
+    lo |= (unsigned)(acc[j][0] & 1) << b | (unsigned)(acc[j][1] & 1) << (b + 1);
+    hi |= (unsigned)(acc[j][2] & 1) << b | (unsigned)(acc[j][3] & 1) << (b + 1);
+  }
+  if (lo) atomicOr(&odd_rows[16 * warp + g], lo);
+  if (hi) atomicOr(&odd_rows[16 * warp + g + 8], hi);
+  __syncthreads();
+  if (tid < SCR_TW && w0 + tid < W && odd_rows[tid])
+    atomicXor(&syn[(size_t)(w0 + tid) * SYN_WORDS + blockIdx.y], odd_rows[tid]);
+  __threadfence();
+  __syncthreads();
+  if (tid == 0)
+    last = atomicAdd(&done[blockIdx.x], 1u) == gridDim.y * gridDim.z - 1;
+  __syncthreads();
+  if (!last) return;
+  // the tile's last block: every split has added its parities
+  __threadfence();
+  if (tid < SCR_TW && w0 + tid < W) {
+    unsigned any = 0;
+    for (int y = 0; y < (int)gridDim.y; ++y)
+      any |= __ldcg(&syn[(size_t)(w0 + tid) * SYN_WORDS + y]);
+    clean_out[w0 + tid] = (int8_t)(any == 0);
   }
 }
 
@@ -452,11 +626,16 @@ size_t shared_bytes(int k, int q, int cnl) {
 
 struct Args {
   const int8_t* llr;
-  int8_t* hard;
-  uint32_t* hard_bits;
+  uint32_t* packed;
+  int packed_words;
   int8_t* ok;
   int32_t* iters;
-  int8_t* clean;
+  int32_t* sweeps;
+  uint32_t* masks;
+  uint32_t* syn;
+  uint32_t* done;
+  const int32_t* seg;
+  int n_seg;
   const int2* slot_tab;
   const int32_t* row_tab;
   int W, k, q, cnl, max_iters;
@@ -464,17 +643,22 @@ struct Args {
   cudaStream_t stream;
 };
 
+// The decoder's four passes (see "Tile exit").
 template <int MAXC, bool UNIFORM, bool FULL>
 cudaError_t launch(const Args& a) {
   auto kern = ldpc_layered_kernel<MAXC, UNIFORM, FULL>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)a.smem);
   if (e != cudaSuccess) return e;
-  kern<<<a.W, THREADS, a.smem, a.stream>>>(a.llr, a.hard, a.hard_bits, a.ok,
-                                           a.iters, a.clean, a.slot_tab,
-                                           a.row_tab, a.k, a.q, a.cnl,
-                                           a.max_iters);
-  return cudaGetLastError();
+  for (int pass = PASS_FIRST; pass <= PASS_FINAL; ++pass) {
+    kern<<<a.W, THREADS, a.smem, a.stream>>>(
+        a.llr, a.packed, a.packed_words, a.ok, a.iters, a.sweeps, a.masks,
+        a.syn, a.done, a.seg, a.n_seg, a.slot_tab, a.row_tab, a.k, a.q,
+        a.cnl, a.max_iters, pass);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
 }
 
 cudaError_t dispatch(const Args& a, int slots, bool uniform) {
@@ -502,6 +686,12 @@ cudaError_t dispatch(const Args& a, int slots, bool uniform) {
   }
 }
 
+// Splits of a screen row's words: enough blocks for two on every SM.
+int screen_splits(int blocks_xy, int n_chunks, int sms) {
+  const int want = (2 * sms + blocks_xy - 1) / blocks_xy;
+  return max(1, min(want, n_chunks));
+}
+
 }  // namespace
 
 // Dynamic shared memory of one decoder block for a table, or -1 where no
@@ -511,37 +701,53 @@ extern "C" int ldpc_layered_shared_bytes(int k, int q, int cnl, int uniform) {
   return slots ? (int)shared_bytes(k, q, cnl) : -1;
 }
 
-// llr int8 [W, k + q*360] in kernel bit order; hard int8 [W, k];
-// hard_bits uint32 [W, h_words] (written when n_syn > 0); ok int8 [W];
-// iters int32 [W]; clean int8 [W]; slot_tab int32 [q, cnl, 2] = (group * 360,
-// shift); row_tab int32 [q] = cnt | nfirst << 8 | sync << 16;
-// h_bits uint32 [n_syn, h_words] (n_syn = 0: no BCH screen).
-// Launches the decoder, and behind it the screen, on `stream`; does not
-// synchronize.  Returns a cudaError_t (0 = launched); after
-// cudaErrorInvalidValue, last_error_detail() says which argument.
+// Launches of the decoder kernel a call makes: its passes (see "Tile
+// exit"), each a launch, whatever work they find.
+extern "C" int ldpc_layered_passes() { return PASS_FINAL + 1; }
+
+// Int32 words of scratch a call of W codewords needs (the wrapper
+// allocates them; their contents need not be set).
+extern "C" int ldpc_layered_scratch_words(int W) {
+  return W * (1 + MASK_WORDS + SYN_WORDS) + (W + SCR_TW - 1) / SCR_TW;
+}
+
+// llr int8 [W, k + q*360] in kernel bit order -> packed uint8 [W,
+// 4 * packed_words]: the hard bits of [0, k) MSB first (np.packbits), the
+// rest of the row zero; ok int8 [W]; iters int32 [W]; clean int8 [W]
+// (written when n_syn > 0).  scratch: ldpc_layered_scratch_words(W) int32.
+// seg int32 [n_seg + 1]: the segments' first codewords, then W; tiles of
+// 128 codewords count from each segment's start.  slot_tab int32 [q, cnl,
+// 2] = (group * 360, shift); row_tab int32 [q] = cnt | nfirst << 8 | sync
+// << 16; h_bits uint32 [n_syn, packed_words], H packed as the rows are
+// (n_syn = 0: no BCH screen).  Launches the decoder's four passes and
+// behind them the screen on `stream`; does not synchronize.  Returns a
+// cudaError_t (0 = launched); after cudaErrorInvalidValue,
+// last_error_detail() says which argument.
 extern "C" int ldpc_layered_decode(
-    const void* llr, void* hard, void* hard_bits, void* ok, void* iters,
-    void* clean, const void* slot_tab, const void* row_tab,
-    const void* h_bits, int n_syn, int h_words, int W, int k, int q, int cnl,
-    int uniform, int max_iters, void* stream) {
+    const void* llr, void* packed, int packed_words, void* ok, void* iters,
+    void* clean, void* scratch, const void* seg, int n_seg,
+    const void* slot_tab, const void* row_tab, const void* h_bits, int n_syn,
+    int W, int k, int q, int cnl, int uniform, int max_iters, void* stream) {
   g_detail[0] = 0;
   if (W == 0) return 0;
-  const int kw = (k + 31) / 32;
   const int slots = template_slots(cnl, uniform != 0);
   if (slots == 0 || q < 2 || q > (slots > 13 ? MAXQ_WIDE : MAXQ_NARROW) ||
-      k % M != 0 || max_iters < 1 ||
-      (n_syn > 0 && h_words != kw)) {
+      k % M != 0 || max_iters < 1 || max_iters >= 32 * MASK_WORDS ||
+      packed_words % 4 != 0 || 4 * packed_words < k / 8 || n_seg < 1 ||
+      n_syn < 0 || n_syn > 32 * SYN_WORDS) {
     snprintf(g_detail, sizeof g_detail,
              "unsupported arguments: k=%d q=%d cnl=%d uniform=%d max_iters=%d "
-             "n_syn=%d h_words=%d (want %d)",
-             k, q, cnl, uniform, max_iters, n_syn, h_words, kw);
+             "packed_words=%d n_seg=%d n_syn=%d",
+             k, q, cnl, uniform, max_iters, packed_words, n_seg, n_syn);
     return (int)cudaErrorInvalidValue;
   }
-  int device = 0, smem_max = 0;
+  int device = 0, smem_max = 0, sms = 0;
   cudaError_t e = cudaGetDevice(&device);
   if (e != cudaSuccess) return (int)e;
   e = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                              device);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (e != cudaSuccess) return (int)e;
   const size_t smem = shared_bytes(k, q, cnl);
   if (smem > (size_t)smem_max) {
@@ -552,21 +758,37 @@ extern "C" int ldpc_layered_decode(
              smem, k, q, cnl, k + q * M, smem_max);
     return (int)cudaErrorInvalidValue;
   }
+  uint32_t* s32 = static_cast<uint32_t*>(scratch);
   const Args a{static_cast<const int8_t*>(llr),
-               static_cast<int8_t*>(hard),
-               n_syn > 0 ? static_cast<uint32_t*>(hard_bits) : nullptr,
+               static_cast<uint32_t*>(packed),
+               packed_words,
                static_cast<int8_t*>(ok),
                static_cast<int32_t*>(iters),
-               static_cast<int8_t*>(clean),
+               reinterpret_cast<int32_t*>(s32),
+               s32 + W,
+               n_syn > 0 ? s32 + W * (1 + MASK_WORDS) : nullptr,
+               s32 + W * (1 + MASK_WORDS + SYN_WORDS),
+               static_cast<const int32_t*>(seg),
+               n_seg,
                static_cast<const int2*>(slot_tab),
                static_cast<const int32_t*>(row_tab),
                W, k, q, cnl, max_iters, smem,
                static_cast<cudaStream_t>(stream)};
   e = dispatch(a, slots, uniform != 0);
   if (e != cudaSuccess || n_syn == 0) return (int)e;
-  const dim3 grid((W + SCR_TW - 1) / SCR_TW, (n_syn + SCR_TR - 1) / SCR_TR);
-  bch_screen_kernel<<<grid, SCR_THREADS, 0, a.stream>>>(
-      a.hard_bits, static_cast<const uint32_t*>(h_bits), a.clean, W, n_syn, kw);
+  e = cudaFuncSetAttribute(bch_screen_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)SCR_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  const int n_chunks = (packed_words + SCR_KC - 1) / SCR_KC;
+  const int gx = (W + SCR_TW - 1) / SCR_TW, gy = (n_syn + SCR_TR - 1) / SCR_TR;
+  const int splits = screen_splits(gx * gy, n_chunks, sms);
+  const int per_split = (n_chunks + splits - 1) / splits;
+  const dim3 grid(gx, gy, (n_chunks + per_split - 1) / per_split);
+  bch_screen_kernel<<<grid, SCR_THREADS, SCR_SMEM, a.stream>>>(
+      a.packed, static_cast<const uint32_t*>(h_bits),
+      static_cast<int8_t*>(clean), a.syn, a.done, W, n_syn, packed_words,
+      per_split);
   return (int)cudaGetLastError();
 }
 

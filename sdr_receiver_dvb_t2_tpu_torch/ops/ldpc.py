@@ -5,8 +5,9 @@ the same message algebra on the DVB-T2 QC-IRA codes, in two forms that
 compute the same function:
 
 * ``ops/csrc/ldpc_layered.cu``: the CUDA kernels (the decoder, one thread
-  block per codeword, and the BCH screen over its packed hard bits),
-  launched by :class:`LayeredDecoder` on a CUDA tensor;
+  block per codeword, which writes the BB frame's bytes, and the BCH
+  screen over those bytes), launched by :class:`LayeredDecoder` on a CUDA
+  tensor;
 * :func:`decode_plain`: the plain PyTorch twin, the same integer algebra on
   [W, 360] slabs with ``torch.roll``, used for a CPU tensor and to check
   the kernel.
@@ -37,13 +38,20 @@ from zeroed state.  (The kernel's unrolled slot count is cnl or the next
 size up; it keeps the two parity slots' sign bits behind that count.)  ``decode_plain(state="compressed")`` runs on these
 words, ``state="explicit"`` on the message array; both give the same bits.
 
-Early exit contract.  The Pallas kernel leaves its sweep loop once every
-codeword of its 128-codeword tile is clean.  CUDA blocks cannot wait on
-each other, so the kernel exits per codeword.  The twin takes
-``exit_tile``: ``exit_tile=1`` matches the CUDA kernel, ``exit_tile=128``
-matches Pallas.  ``iters`` (the first clean sweep) is the same under both;
-``ok`` and the hard bits can differ only when a codeword that was already
-clean changes in a later sweep of its tile.
+Early exit contract.  The Pallas kernel leaves its sweep loop in the first
+sweep in which every codeword of its 128-codeword tile is clean (or after
+max_iters); the clean codewords of a tile that is not done sweep on.  That
+is not the same as leaving per codeword: the syndrome is counted from the
+posteriors as a sweep updates them, so a sweep without an unsatisfied
+check can end on bits that are no codeword, which the next sweeps repair,
+and a codeword clean in one sweep can be dirty in the next.  Both forms
+keep the tile contract.  The tiles count 128 codewords from the start of
+each *segment*: one call of :class:`LayeredDecoder` can stand for several
+Pallas calls (the pod decodes one per device), and ``segments`` gives
+their codeword counts.  The twin also takes ``exit_tile`` (``1``: each
+codeword leaves at its first clean sweep, which the tests use to show
+that the contracts differ).  The CUDA kernel cannot make blocks wait for
+each other, so it decodes in passes (its header, "Tile exit").
 """
 from __future__ import annotations
 
@@ -176,16 +184,24 @@ def pad_bch_h(bch_h: np.ndarray) -> np.ndarray:
     return h_pad
 
 
+def packed_row_bytes(k: int) -> int:
+    """Bytes of one row of the kernel's packed hard bits: k / 8, padded
+    to 16 (the screen reads 16 bytes a copy)."""
+    return -(-k // 128) * 16
+
+
 def pack_bch_h(bch_h: np.ndarray) -> np.ndarray:
-    """[n_bch, n_syn] GF(2) matrix -> the kernel's packed rows
-    [n_syn, ceil(n_bch / 32)] uint32: bit b of word w is codeword bit
-    32 * w + b of the syndrome row."""
+    """[n_bch, n_syn] GF(2) matrix -> the screen's packed rows [n_syn,
+    packed_row_bytes(n_bch) / 4] uint32: each syndrome row packed as the
+    kernel packs the hard bits (bytes MSB first, np.packbits order, zero
+    padded), read as little-endian 32-bit words.  The parity of
+    popc(bits & h) over a row's words is the syndrome bit whatever the
+    order of bits in a word, as long as both sides share it."""
     h = np.asarray(bch_h).astype(bool).T                 # [n_syn, n_bch]
-    words = -(-h.shape[1] // 32)
-    padded = np.zeros((h.shape[0], words * 32), bool)
-    padded[:, :h.shape[1]] = h
-    bits = padded.reshape(h.shape[0], words, 32).astype(np.uint64)
-    return (bits << np.arange(32, dtype=np.uint64)).sum(-1).astype(np.uint32)
+    row = packed_row_bytes(h.shape[1])
+    packed = np.zeros((h.shape[0], row), np.uint8)
+    packed[:, :-(-h.shape[1] // 8)] = np.packbits(h, axis=1)
+    return packed.view("<u4")
 
 
 def kernel_bit_order(table_name: str) -> np.ndarray:
@@ -338,18 +354,50 @@ def _sweep(lam, par, c2v, tabs):
     return unsat
 
 
+TILE = 128    # codewords of a Pallas tile
+
+
+def segment_starts(segments, w: int) -> list:
+    """Codeword counts of the segments of a call of W codewords (None: one
+    segment) -> their first codewords, then W."""
+    counts = [w] if segments is None else [int(c) for c in segments]
+    if any(c < 0 for c in counts) or sum(counts) != w:
+        raise ValueError(f"segments {counts} do not split {w} codewords")
+    return np.concatenate([[0], np.cumsum(counts)]).astype(np.int64).tolist()
+
+
+def tile_index(segments, w: int, exit_tile: int = TILE) -> np.ndarray:
+    """[W] the exit tile of each codeword: ``exit_tile`` codewords from the
+    start of each segment."""
+    starts = segment_starts(segments, w)
+    tile, base = np.zeros(w, np.int64), 0
+    for a, b in zip(starts[:-1], starts[1:]):
+        tile[a:b] = base + np.arange(b - a) // exit_tile
+        base += -(-(b - a) // exit_tile)
+    return tile
+
+
+def decoder_passes() -> int:
+    """Launches of the decoder kernel one call on the card makes (its
+    passes, ``ldpc_layered.cu`` "Tile exit"); builds the kernel."""
+    from ._build import load_kernel
+    return load_kernel("ldpc_layered").ldpc_layered_passes()
+
+
 def decode_plain(llr: torch.Tensor, table_name: str, max_iters: int = 15,
                  bch_h: np.ndarray | None = None, exit_tile: int = 1,
-                 state: str = "compressed"):
+                 state: str = "compressed", segments=None):
     """Plain PyTorch layered decoder.
 
     llr int8 [W, N] in kernel bit order (positive = bit 0) -> (hard [W, k]
     int8, ok [W] bool, iters [W] int32, clean [W] bool or None).
-    ``exit_tile`` codewords leave the sweep loop together (see the module
-    docstring); ``clean`` is the BCH syndrome screen when ``bch_h`` is given.
-    ``state`` chooses the form of the check state between sweeps,
-    ``"compressed"`` (one word per check, as the kernel keeps it) or
-    ``"explicit"`` (every message); the results are the same.
+    ``exit_tile`` codewords, counted from the start of each of the
+    ``segments`` (codeword counts; None: one), leave the sweep loop
+    together (see the module docstring); ``clean`` is the BCH syndrome
+    screen when ``bch_h`` is given.  ``state`` chooses the form of the
+    check state between sweeps, ``"compressed"`` (one word per check, as
+    the kernel keeps it) or ``"explicit"`` (every message); the results
+    are the same.
     """
     if state not in ("compressed", "explicit"):
         raise ValueError(f"state must be compressed or explicit, got {state!r}")
@@ -369,7 +417,7 @@ def decode_plain(llr: torch.Tensor, table_name: str, max_iters: int = 15,
            torch.zeros((w, q, cnl + 2, M), dtype=torch.int32, device=dev))
     unsat = torch.zeros(w, dtype=torch.int64, device=dev)
     first = torch.zeros(w, dtype=torch.int32, device=dev)
-    tile = torch.arange(w, device=dev) // exit_tile
+    tile = torch.from_numpy(tile_index(segments, w, exit_tile)).to(dev)
     n_tiles = int(tile.max()) + 1 if w else 0
     done = torch.zeros(n_tiles, dtype=torch.bool, device=dev)
     for it in range(max_iters):
@@ -396,14 +444,20 @@ def decode_plain(llr: torch.Tensor, table_name: str, max_iters: int = 15,
 # CUDA kernel wrapper
 # ---------------------------------------------------------------------------
 class LayeredDecoder:
-    """decode(llr int8 [W, N]) -> (hard [W, k] int8, ok [W] bool,
-    iters [W] int32, clean [W] bool or None).
+    """decode(llr int8 [W, N], segments=None) -> (packed uint8 [W, k / 8],
+    ok [W] bool, iters [W] int32, clean [W] bool or None).
 
-    On a CUDA tensor it launches ``ldpc_layered.cu`` (or raises); on a CPU
-    tensor it runs :func:`decode_plain` with ``exit_tile=1``, which is what
-    the kernel computes.  ``launches`` counts launches of the decoder
-    kernel, ``screen_launches`` those of the BCH screen kernel that the
-    same call starts behind it when ``bch_h`` is given.
+    ``packed`` is the hard bits of the information part, MSB first per
+    byte (np.packbits order): the BB frame with its BCH parity.  The tiles
+    of the early exit count 128 codewords from the start of each segment
+    (``segments``: the codeword counts of the Pallas calls this call
+    stands for; None, one).  On a CUDA tensor it launches
+    ``ldpc_layered.cu`` (or raises), and ``packed`` is a view of rows
+    padded to 16 bytes; on a CPU tensor it runs :func:`decode_plain` with
+    the same tiles and packs its bits with ``bch_ops.pack_bits``.
+    ``launches`` counts the decoder kernel's launches (a call on the card
+    makes :func:`decoder_passes` of them), ``screen_launches`` those of
+    the BCH screen kernel behind it, one a call when ``bch_h`` is given.
     """
 
     launches = 0
@@ -428,6 +482,7 @@ class LayeredDecoder:
             raise ValueError(f"bch_h must have {plan.k} rows, one per "
                              f"information bit, got {bch_h.shape}")
         self._dev = {}
+        self._segs = {}
 
     @property
     def shared_bytes(self) -> int:
@@ -441,53 +496,67 @@ class LayeredDecoder:
     def _device_tabs(self, device):
         if device not in self._dev:
             h = (pack_bch_h(self.bch_h) if self.bch_h is not None
-                 else np.zeros((0, 1), np.uint32))
+                 else np.zeros((0, packed_row_bytes(self.plan.k) // 4),
+                               np.uint32))
             self._dev[device] = tuple(
                 torch.as_tensor(a, device=device)
                 for a in (*self._host_tabs, h.view(np.int32)))
         return self._dev[device]
 
-    def __call__(self, llr: torch.Tensor):
+    def _device_segments(self, starts: list, device):
+        key = (tuple(starts), device)
+        if key not in self._segs:
+            self._segs[key] = torch.tensor(starts, dtype=torch.int32,
+                                           device=device)
+        return self._segs[key]
+
+    def __call__(self, llr: torch.Tensor, segments=None):
         plan = self.plan
         if llr.dtype != torch.int8 or llr.dim() != 2 or llr.shape[1] != plan.n:
             raise ValueError(f"llr must be int8 [W, {plan.n}], got "
                              f"{llr.dtype} {tuple(llr.shape)}")
+        starts = segment_starts(segments, llr.shape[0])
         if llr.device.type == "cpu":
-            return decode_plain(llr, self.table_name, self.max_iters,
-                                self.bch_h, exit_tile=1)
+            from .bch_ops import pack_bits
+            hard, ok, iters, clean = decode_plain(
+                llr, self.table_name, self.max_iters, self.bch_h,
+                exit_tile=TILE, segments=segments)
+            return pack_bits(hard), ok, iters, clean
         if llr.device.type != "cuda":
             raise ValueError(f"unsupported device {llr.device}")
         if not llr.is_contiguous():
             raise ValueError("llr must be contiguous")
-        return self._launch(llr)
+        return self._launch(llr, starts)
 
-    def _launch(self, llr):
+    def _launch(self, llr, starts):
         from ._build import load_kernel
         lib = load_kernel("ldpc_layered")
         plan = self.plan
         w, dev = llr.shape[0], llr.device
         slot_tab, row_tab, h = self._device_tabs(dev)
+        seg = self._device_segments(starts, dev)
         screen = self.bch_h is not None
-        hard = torch.empty((w, plan.k), dtype=torch.int8, device=dev)
-        # the hard bits again, 32 to a word, for the screen kernel
-        hard_bits = torch.empty((w, h.shape[1]) if screen else (0,),
-                                dtype=torch.int32, device=dev)
+        packed = torch.empty((w, packed_row_bytes(plan.k)), dtype=torch.uint8,
+                             device=dev)
         ok = torch.empty(w, dtype=torch.int8, device=dev)
         iters = torch.empty(w, dtype=torch.int32, device=dev)
         clean = torch.empty(w, dtype=torch.int8, device=dev)
+        scratch = torch.empty(lib.ldpc_layered_scratch_words(w),
+                              dtype=torch.int32, device=dev)
         p = ctypes.c_void_p
         err = lib.ldpc_layered_decode(
-            p(llr.data_ptr()), p(hard.data_ptr()), p(hard_bits.data_ptr()),
+            p(llr.data_ptr()), p(packed.data_ptr()), packed.shape[1] // 4,
             p(ok.data_ptr()), p(iters.data_ptr()), p(clean.data_ptr()),
+            p(scratch.data_ptr()), p(seg.data_ptr()), len(starts) - 1,
             p(slot_tab.data_ptr()), p(row_tab.data_ptr()), p(h.data_ptr()),
-            h.shape[0] if screen else 0, h.shape[1],
-            w, plan.k, plan.q, plan.cnl, int(self.uniform), self.max_iters,
-            p(torch.cuda.current_stream(dev).cuda_stream))
+            h.shape[0], w, plan.k, plan.q, plan.cnl, int(self.uniform),
+            self.max_iters, p(torch.cuda.current_stream(dev).cuda_stream))
         if err != 0:
             raise RuntimeError(
                 f"ldpc_layered_decode({self.table_name}, W={w}) failed: CUDA "
                 f"error {err} ({lib.last_error_string(err).decode()}) "
                 f"{lib.last_error_detail().decode()}")
-        LayeredDecoder.launches += 1
+        LayeredDecoder.launches += lib.ldpc_layered_passes()
         LayeredDecoder.screen_launches += int(screen)
-        return hard, ok.bool(), iters, clean.bool() if screen else None
+        return (packed[:, :plan.k // 8], ok.bool(), iters,
+                clean.bool() if screen else None)

@@ -28,9 +28,9 @@ The receive step is two stages, as in the frame receiver
   L1-dynamic-independent.  It also reads the first frame's L1 signalling
   cells per channel, so that the host can track dynamic L1 every step
   without demodulating again.
-* **fec stage** — per PLP: demap + the LDPC kernel with its BCH screen +
-  bit packing on the device, then on the host the BCH correction of the
-  rare codewords the screen flags.
+* **fec stage** — per PLP: demap + the LDPC kernel with its BCH screen on
+  the device (the kernel writes the BB frames' bytes), then on the host
+  the BCH correction of the rare codewords the screen flags.
 
 Alignment contract (host-managed, float64): the contiguous path feeds
 ``n_time * raw_block`` raw samples per step with the resampler position
@@ -253,18 +253,24 @@ class ShardedReceiver:
 
     def _groups(self, n_ch: int) -> list:
         """[(device, flat shard indices c * n_time + t on it, in order)]
-        for this rank's cells (all cells on a one-process grid)."""
+        for this rank's cells (all cells on a one-process grid), in the
+        order of the grid's cells (row, time block) and within a cell its
+        channels: one cell's shards are contiguous, as the JAX pod's
+        device holds them, so that its codewords form one segment of the
+        LDPC call (fec_step_async)."""
         if n_ch % self.n_ch:
             raise ValueError(f"{n_ch} channels on a grid of {self.n_ch} "
                              "channel rows: need a multiple")
         if n_ch not in self._groups_by_c:
             per = n_ch // self.n_ch
             by_dev: dict = {}
-            for c in range(n_ch):
+            for r in range(self.n_ch):
                 for t in range(self.n_time):
-                    dev = self.mesh.devices[c // per][t]
+                    dev = self.mesh.devices[r][t]
                     if dev is not None:
-                        by_dev.setdefault(dev, []).append(c * self.n_time + t)
+                        by_dev.setdefault(dev, []).extend(
+                            c * self.n_time + t
+                            for c in range(r * per, (r + 1) * per))
             self._groups_by_c[n_ch] = [(d, np.asarray(v, np.int64))
                                        for d, v in by_dev.items()]
         return self._groups_by_c[n_ch]
@@ -328,7 +334,7 @@ class ShardedReceiver:
         plan = self.plans[0]
         shards = []
         for dev, cells in self._groups(n_ch):
-            whole = len(cells) == len(rows)
+            whole = np.array_equal(loc[cells], np.arange(len(rows)))
             xr = (rows if whole else rows[torch.from_numpy(loc[cells])]).to(
                 dev, non_blocking=True)
             ch = cells // nt
@@ -393,18 +399,29 @@ class ShardedReceiver:
         is dropped unread, as one the BCH could not correct."""
         return self.fec_finish(self.fec_step_async(plane, i), correct)
 
+    def fec_segments(self, n_ch: int, n_shards: int, i: int = 0) -> list:
+        """The segments of the LDPC call over ``n_shards`` (channel, time)
+        shards of a grid of ``n_ch`` channels, as _groups orders them: the
+        JAX pod decodes each grid cell's codewords in a Pallas call of its
+        own, whose early-exit tiles count from its start, so one segment a
+        cell, of its channels' frames' FEC blocks."""
+        per = n_ch // self.n_ch
+        return [per * self.cfg.frames_per_shard
+                * self.plps[i].n_fec_per_frame] * (n_shards // per)
+
     def fec_step_async(self, plane: "PlaneResult", i: int = 0):
-        """Device half of fec_step: demap, ONE LDPC + BCH-screen kernel
-        launch and bit packing a device, and the copies to the host
-        started without blocking.  fec_finish completes them."""
+        """Device half of fec_step: demap and ONE LDPC + BCH-screen kernel
+        call a device (the kernel writes the BB frames' bytes), and the
+        copies to the host started without blocking.  fec_finish
+        completes them."""
         state, plan = self.plps[i], self.plans[i]
         decoder = self._decoder(state.plp)
         parts = []
         for s in plane.shards:
             llr, snr = rx_chain.packed_to_llr(
                 s.eq, plan, self._consts_on(i, s.device), csi=s.csi)
-            hard, ok, iters, clean = decoder(llr)
-            packed = bch_ops.pack_bits(hard[:, :state.plp.n_bch])
+            packed, ok, iters, clean = decoder(
+                llr, segments=self.fec_segments(plane.n_ch, len(s.cells), i))
             out = dict(packed=packed, ok=ok, iters=iters, clean=clean,
                        snr=snr)
             side = None

@@ -37,14 +37,33 @@ def test_kernel_matches_twin(cuda, rate, frame, n_cw):
     llr, plp = coded_llrs(rate, frame, n_cw, seed=9)
     before = ldpc.LayeredDecoder.launches
     screens = ldpc.LayeredDecoder.screen_launches
-    res, got = check_kernel_against_twin(torch.from_numpy(llr).to(cuda), plp)
-    assert ldpc.LayeredDecoder.launches == before + 1
+    res, got, _ = check_kernel_against_twin(torch.from_numpy(llr).to(cuda),
+                                            plp)
+    assert ldpc.LayeredDecoder.launches == before + ldpc.decoder_passes()
     assert ldpc.LayeredDecoder.screen_launches == screens + 1
     assert res["max_abs_err"] == 0
-    assert got[0].device.type == "cuda"
+    assert got[0].device.type == "cuda" and got[0].dtype == torch.uint8
+    assert got[0].shape == (n_cw, ldpc.get_plan(plp.ldpc_table_name).k // 8)
     # the noise-free quarter decodes in one sweep, the hopeless quarter not
     assert got[1][0::4].all() and (got[2][0::4] == 1).all()
     assert not got[3][1::4].any()
+
+
+@pytest.mark.parametrize("lo,hi,rows,max_iters,segments", [
+    (0.6, 0.9, 128, 12, None), (0.6, 0.9, 128, 12, [60, 68]),
+    (0.5, 0.8, 32, 15, None)])
+def test_kernel_keeps_the_tile_exit(cuda, lo, hi, rows, max_iters, segments):
+    """The SHORT r2/3 loads of tests/test_torch_ldpc_tile.py, where the
+    Pallas tile exit is not leaving per codeword (the last one needs the
+    decoder's mask and final passes): bytes, ok, iters, clean exact
+    against the twin under the tile contract."""
+    from chip_smoke import check_kernel_against_twin, noisy_load
+    from sdr_receiver_dvb_t2_tpu_torch.params.modes import (
+        CodeRate, FecFrame, PlpConfig)
+    plp = PlpConfig(code_rate=CodeRate.C2_3, fec_frame=FecFrame.SHORT)
+    llr = torch.from_numpy(noisy_load(2, lo, hi)[:rows]).to(cuda)
+    res, _, _ = check_kernel_against_twin(llr, plp, max_iters, segments)
+    assert res["max_abs_err"] == 0
 
 
 def test_shared_memory_is_sized_alike_in_c_and_python(cuda):
@@ -62,12 +81,13 @@ def test_kernel_refuses_a_table_it_has_no_room_for(cuda):
     """A code whose posteriors and state exceed a block's shared memory is
     refused with its sizes named, before any launch."""
     import ctypes
-    from sdr_receiver_dvb_t2_tpu_torch.ops import _build
+    from sdr_receiver_dvb_t2_tpu_torch.ops import _build, ldpc
     lib = _build.load_kernel("ldpc_layered")
     null = ctypes.c_void_p(0)
-    err = lib.ldpc_layered_decode(null, null, null, null, null, null, null,
-                                  null, null, 0, 0, 1, 360 * 600, 90, 5, 1,
-                                  15, null)
+    k = 360 * 600
+    err = lib.ldpc_layered_decode(null, null, ldpc.packed_row_bytes(k) // 4,
+                                  null, null, null, null, null, 1, null,
+                                  null, null, 0, 1, k, 90, 5, 1, 15, null)
     assert err != 0
     assert b"shared memory" in lib.last_error_detail()
 
@@ -244,7 +264,8 @@ def test_stream_cuda_equals_cpu(cuda, tmp_path):
                          ldpc.LayeredDecoder.launches - before)
     (st, got, m, launches), (cst, cgot, cm, _) = out["cuda"], out["cpu"]
     assert st.state == cst.state == "locked" and m == cm
-    assert st.frames == cst.frames >= 4 and launches == st.frames
+    assert st.frames == cst.frames >= 4
+    assert launches == ldpc.decoder_passes() * st.frames
     assert st.ldpc_failures == st.bch_dirty == 0
     assert abs(st.cfo_hz - 31e3) < 500
     assert got.tobytes() == cgot.tobytes() and ts_in_stream(got, ts)
@@ -404,7 +425,7 @@ def test_pod_step_cuda_equals_cpu(cuda):
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = saved
     (gp, gf, launches, screens), (cp, cf, _, _) = out["cuda"], out["cpu"]
-    assert launches == screens == 1
+    assert launches == ldpc.decoder_passes() and screens == 1
     (gs,), (cs,) = gp.shards, cp.shards
     assert gs.eq.device.type == "cuda"
     assert _rel_db(gs.eq, cs.eq) < -80.0 and _rel_db(gs.csi, cs.csi) < -80.0

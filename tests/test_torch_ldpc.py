@@ -3,9 +3,13 @@
 The plain PyTorch twin (ops/ldpc.decode_plain) with ``exit_tile=128`` must
 be bit-exact against ``make_pallas_decoder(..., interpret=True)`` on hard
 bits, ok, iters and the fused BCH clean flag, on the cases of
-tests/test_ldpc_pallas_interpret.py.  The edge tables, the kernel bit order
-and the kernel's packed BCH screen are held against the JAX package too.
+tests/test_ldpc_pallas_interpret.py, and ``LayeredDecoder``'s bytes must be
+``np.packbits`` of the Pallas hard bits.  The edge tables, the kernel bit
+order and the kernel's BCH screen over the byte rows are held against the
+JAX package too.
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -18,6 +22,12 @@ from sdr_receiver_dvb_t2_tpu_torch.ops import bch_ops, ldpc
 from sdr_receiver_dvb_t2_tpu_torch.ops.ldpc_decode import get_plan
 
 from _torch_common import LDPC_CASES, LDPC_W as W, ldpc_case
+
+
+@functools.lru_cache(maxsize=None)
+def _pallas_case(name):
+    table, x, max_iters, bch_h, _ = ldpc_case(name)
+    return _pallas(table, x, max_iters, bch_h)
 
 
 def _pallas(table, x, max_iters, bch_h):
@@ -34,7 +44,7 @@ def _pallas(table, x, max_iters, bch_h):
 @pytest.mark.parametrize("name", LDPC_CASES)
 def test_twin_matches_pallas_interpret(name):
     table, x, max_iters, bch_h, n_cw = ldpc_case(name)
-    want = _pallas(table, x, max_iters, bch_h)
+    want = _pallas_case(name)
     got = ldpc.decode_plain(torch.from_numpy(x), table, max_iters, bch_h,
                             exit_tile=W)
     np.testing.assert_array_equal(got[0].numpy(), want[0])
@@ -46,29 +56,53 @@ def test_twin_matches_pallas_interpret(name):
     assert want[1][:n_cw].all() == (name != "BCH")
 
 
-def test_kernel_bch_layout_matches_plain_screen():
-    """The kernel's epilogue: hard bits packed 32 to a word (bit b of word w
-    = bit 32w+b) against H rows packed the same way (pack_bch_h); syndrome
-    bit = parity of the popcount of their AND.  Emulated in numpy, it must
-    equal the plain screen on clean and dirty words, with k not a multiple
-    of 32 (SHORT r2/3: k = 10800)."""
+@pytest.mark.parametrize("name", LDPC_CASES)
+def test_wrapper_bytes_match_pallas(name):
+    """The wrapper's output on a CPU tensor: the information bits as bytes,
+    MSB first, equal to np.packbits of the Pallas hard bits, with its ok,
+    iters and clean."""
+    table, x, max_iters, bch_h, _ = ldpc_case(name)
+    want = _pallas_case(name)
+    dec = ldpc.LayeredDecoder(table, max_iters=max_iters, bch_h=bch_h)
+    packed, ok, iters, clean = dec(torch.from_numpy(x))
+    assert packed.dtype == torch.uint8
+    assert packed.shape == (W, get_plan(table).k // 8)
+    np.testing.assert_array_equal(packed.numpy(),
+                                  np.packbits(want[0].astype(np.uint8), 1))
+    np.testing.assert_array_equal(ok.numpy(), want[1])
+    np.testing.assert_array_equal(iters.numpy(), want[2])
+    if bch_h is not None:
+        np.testing.assert_array_equal(clean.numpy(), want[3])
+
+
+@pytest.mark.parametrize("k_bch,m,t", [(10632, 14, 12), (43040, 16, 10),
+                                       (3072, 14, 12)])
+def test_kernel_bch_layout_matches_plain_screen(k_bch, m, t):
+    """The screen kernel's arithmetic: the hard bits as the decoder writes
+    them (bytes MSB first, rows zero-padded to 16 bytes) and H packed the
+    same way (pack_bch_h), both read as 32-bit words; syndrome bit =
+    parity of the popcount of their AND.  Emulated in numpy, it must equal
+    the plain screen on clean and dirty words, with k / 8 not a multiple of
+    4 (SHORT r2/3: 1350 bytes; SHORT r1/4: 405) and NORMAL r2/3's."""
     rng = np.random.default_rng(11)
-    k_bch, m, t = 10632, 14, 12
     h = jbch._h_matrix(k_bch, m, t)
-    assert h.shape[0] % 32 != 0
+    k = h.shape[0]
     payload = rng.integers(0, 2, (4, k_bch), dtype=np.uint8)
-    cw = np.stack([bch_par.encode(p, m) for p in payload]).astype(np.int8)
+    cw = np.stack([bch_par.encode(p, m, t) for p in payload]).astype(np.int8)
     cw[1, 17] ^= 1
-    cw[3, 5000] ^= 1
-    words = -(-cw.shape[1] // 32)
-    padded = np.zeros((4, words * 32), np.uint64)
-    padded[:, :cw.shape[1]] = cw
-    hbits = (padded.reshape(4, words, 32)
-             << np.arange(32, dtype=np.uint64)).sum(-1)
-    hp = ldpc.pack_bch_h(h).astype(np.uint64)          # [n_syn, words]
-    anded = hbits[:, None, :] & hp[None]
-    pop = np.vectorize(lambda v: bin(int(v)).count("1"))(anded).sum(-1)
-    emulated = ~(pop & 1).astype(bool).any(-1)
+    cw[3, k - 1] ^= 1
+    row = ldpc.packed_row_bytes(k)
+    assert row % 16 == 0 and row >= k // 8
+    rows = np.zeros((4, row), np.uint8)
+    rows[:, :k // 8] = np.packbits(cw.astype(np.uint8), axis=1)
+    words = rows.view("<u4").astype(np.uint64)             # [4, row / 4]
+    hp = ldpc.pack_bch_h(h).astype(np.uint64)              # [n_syn, row / 4]
+    assert hp.shape == (h.shape[1], row // 4)
+    # the parity of a sum of popcounts is that of the xor of the words
+    acc = np.bitwise_xor.reduce(words[:, None, :] & hp[None], axis=-1)
+    for s in (16, 8, 4, 2, 1):
+        acc ^= acc >> np.uint64(s)
+    emulated = ~(acc & np.uint64(1)).astype(bool).any(-1)
     plain = bch_ops.syndrome_flags(torch.from_numpy(cw), h).numpy()
     np.testing.assert_array_equal(emulated, plain)
     np.testing.assert_array_equal(plain, [True, False, True, False])

@@ -123,8 +123,9 @@ def test_multi_plp(monkeypatch):
     calls = []
     call = ldpc.LayeredDecoder.__call__
     monkeypatch.setattr(ldpc.LayeredDecoder, "__call__",
-                        lambda self, llr: calls.append(llr.shape) or
-                        call(self, llr))
+                        lambda self, llr, segments=None: calls.append(
+                            (tuple(llr.shape), segments)) or
+                        call(self, llr, segments))
     n_steps = 0
     for _, stats in rx.stream(lock.aligned(raw), lock.mu0, lock.step,
                               freq=lock.freq, max_steps=2, track_l1=True):
@@ -134,8 +135,10 @@ def test_multi_plp(monkeypatch):
             assert np.all(res.bch_clean), (i, res.bch_clean)
             collect_ts(parsers[i], np.unpackbits(res.bb_bytes, axis=-1),
                        res.state.plp.k_bch, out[i])
-    # per step: PLP A's 2 channels x 2 shards x 3 codewords, then B's x 4
-    assert calls == [(12, 16200), (16, 16200)] * 2 and n_steps == 2
+    # per step: PLP A's 2 channels x 2 shards x 3 codewords, then B's x 4,
+    # each shard a segment of its own (the JAX pod's Pallas call a device)
+    assert calls == [((12, 16200), [3] * 4), ((16, 16200), [4] * 4)] * 2
+    assert n_steps == 2
     for i, ts_in in ((0, ts_a), (1, ts_b)):
         for c in range(2):
             assert_ts_match(np.concatenate(out[i][c]).tobytes(),

@@ -259,11 +259,13 @@ def test_plane_stage_matches_jax(planes, path):
         assert dataclasses.asdict(post) == dataclasses.asdict(jpost)
     # the planes: the JAX chain's FFT runs in bf16 and its plane is
     # rounded to bf16 halves (about -46 dB each); the port's is complex64
+    # (the port's rows run over its shards in grid-cell order, s.cells)
     (s,) = pp.shards
     assert s.eq.shape[0] == 2 * prx.n_time
     for got, want in ((s.eq, _unpack(jp.packed)),
                       (s.csi, np.asarray(jp.csi, np.float32))):
-        got, want = got.numpy(), want.reshape(got.shape)
+        got = got.numpy()
+        want = want.reshape(len(s.cells), -1)[s.cells].reshape(got.shape)
         err_db = 10 * np.log10(np.mean(np.abs(got - want) ** 2)
                                / np.mean(np.abs(want) ** 2))
         assert err_db < -38.0, err_db
@@ -289,6 +291,40 @@ def test_fec_stage_matches_jax(fec):
     np.testing.assert_array_equal(pf.bb_bytes[conv], jf.bb_bytes[conv])
     assert (pf.bch_corrected == 0).all()
     np.testing.assert_allclose(pf.snr_db, jf.snr_db, rtol=0, atol=0.3)
+
+
+def test_fec_segments_are_the_jax_pods_device_calls(planes, monkeypatch):
+    """The (1, 2) grid of two channels: each JAX device holds both channels
+    of one time block and decodes their codewords in one Pallas call,
+    whose tiles count from its start.  The port's one call a device has one
+    segment a grid cell, of that cell's codewords in the JAX device's
+    order (channel, frame, FEC block), and decodes as those calls would
+    one by one."""
+    from sdr_receiver_dvb_t2_tpu_torch.ops import ldpc
+    jp, pp, jrx, prx = planes["contiguous"]
+    calls = []
+    call = ldpc.LayeredDecoder.__call__
+    monkeypatch.setattr(ldpc.LayeredDecoder, "__call__",
+                        lambda self, llr, segments=None: calls.append(
+                            (llr, segments)) or call(self, llr, segments))
+    pf, jf = prx.fec_step(pp, 0), jrx.fec_step(jp, 0)
+    (llr, segments), = calls
+    # a JAX device's share of the [C, n_time * F, n_fec] codewords
+    jax_cw = jf.ldpc_ok.size // jrx.mesh.devices.size
+    assert segments == [jax_cw] * jrx.mesh.devices.size
+    (s,) = pp.shards
+    nt = prx.n_time
+    cells = [[c * nt + t for c in range(2)] for t in range(nt)]
+    assert s.cells.tolist() == sum(cells, [])
+    dec = prx._decoder(prx.plps[0].plp)
+    whole = call(dec, llr, segments)
+    parts = [call(dec, x) for x in torch.split(llr, segments)]
+    for i in range(4):
+        torch.testing.assert_close(whole[i], torch.cat([p[i] for p in parts]),
+                                   rtol=0, atol=0)
+    conv = jf.ldpc_ok & pf.ldpc_ok
+    assert conv.all()
+    np.testing.assert_array_equal(pf.bb_bytes, jf.bb_bytes)
 
 
 def test_fec_llrs_match_jax(fec):

@@ -36,7 +36,7 @@ def _dirty_detail(rx, llr, res, i):
     import torch
     from sdr_receiver_dvb_t2_tpu_torch.ops import bch_ops, ldpc
     plp = rx.plp
-    hard = rx.decoder(llr[i:i + 1])[0][0, :plp.n_bch].cpu().numpy()
+    hard = np.unpackbits(rx.decoder(llr[i:i + 1])[0][0].cpu().numpy())
     fixed, nerr = bch_ops.correct_host(hard.astype(np.uint8), plp)
     pos = np.nonzero(fixed != hard[:plp.k_bch])[0]    # BB-frame bits only
     h = bch_ops._h_matrix(plp.k_bch, plp.bch_m, plp.bch_t)
