@@ -54,7 +54,8 @@ _SIGNATURES = {
         "ldpc_layered_decode": ([_P, _P, _I, _P, _P, _P, _P, _P, _I, _P,
                                  _P, _P] + [_I] * 7 + [_P], _I),
         "ldpc_layered_shared_bytes": ([_I] * 4, _I),
-        "ldpc_layered_scratch_words": ([_I], _I),
+        "ldpc_layered_scratch_words": ([_I] * 3, _I),
+        "ldpc_layered_capacity": ([_I] * 4, _I),
         "ldpc_layered_passes": ([], _I),
         "last_error_string": ([_I], ctypes.c_char_p),
         "last_error_detail": ([], ctypes.c_char_p),

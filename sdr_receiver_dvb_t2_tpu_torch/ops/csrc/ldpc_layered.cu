@@ -15,9 +15,10 @@
 // kernel runs at that integer rate (PERF.md), so the design keeps
 // everything a sweep touches on the chip and spends as few instructions
 // and barriers per row as it can:
-//  * one thread block per codeword, 384 threads; thread m < 360 owns check
-//    m of every check row (the 360 checks of a row are independent, and
-//    each slot's cyclic shift makes its access a permutation of the group);
+//  * one thread block a codeword at a time (the grid is persistent: "Tile
+//    exit"), 384 threads; thread m < 360 owns check m of every check row
+//    (the 360 checks of a row are independent, and each slot's cyclic
+//    shift makes its access a permutation of the group);
 //  * posteriors (n bytes, int8: every posterior is an integer clipped to
 //    +-127) live in shared memory, loaded as 16-byte vectors; with the row
 //    tables that is 69 KB for NORMAL r2/3, three blocks an SM;
@@ -51,25 +52,42 @@
 // Tile exit.  Pallas leaves its sweep loop when every codeword of its
 // 128-codeword tile is clean in the same sweep; until then the clean ones
 // sweep on, and that can change their bits (a sweep with no unsatisfied
-// check can end on bits that are no codeword).  Blocks cannot wait for
-// each other, so one call launches the decoder four times over the same
-// LLRs (the tiles count from the start of each segment, one segment per
-// Pallas call the call stands for):
-//  0. every codeword sweeps until its first clean sweep (or max_iters) and
-//     writes its outputs and the sweeps it ran;
-//  1. T0 = the most sweeps in the tile.  A codeword that ran fewer decodes
-//     again from its LLRs for exactly T0 sweeps (the kernel is
-//     deterministic, so this is sweeping on) and writes its outputs of
-//     sweep T0.  An empty grid on the flagship load, where every codeword
-//     is clean at sweep 2;
-//  2. a tile is settled if T0 = max_iters or all of it is clean at T0.
-//     A codeword that was clean and is not at T0 unsettles its tile: then
-//     every codeword of the tile sweeps all max_iters and records which
-//     sweeps were clean (a 128-bit mask);
-//  3. an unsettled tile's exit T is the first sweep clean in all its
-//     masks (else max_iters), and each of its codewords decodes for T
-//     sweeps again and writes its outputs.
-// Passes 2 and 3 find no work on a settled tile and return at once.
+// check can end on bits that are no codeword, and a clean codeword can
+// relapse).  The tiles count from the start of each segment (one segment
+// per Pallas call the call stands for); the host passes their first
+// codewords, then W (ops/ldpc.py tile_starts).  One launch keeps that
+// contract, with a tile's codewords sweeping in lockstep:
+//  * the grid is persistent: G = min(W, resident capacity) blocks, the
+//    capacity being what the occupancy calculator gives for the template
+//    and its shared memory times the SMs, launched cooperatively, so
+//    that all G blocks are resident or the launch fails and nothing runs;
+//  * a block takes its codeword by a ticket (atomicAdd on a counter, so
+//    in codeword order) and takes the next one when its tile stops;
+//  * after each sweep but the last, thread 0 adds 1 + (dirty << 16) to
+//    the word of (tile, sweep) and polls it until its low half counts the
+//    tile's codewords; the high half is then the tile's dirty codewords,
+//    and if it is 0 every codeword of the tile stops and writes the
+//    outputs of that sweep.  The word carries all that is shared, so the
+//    add and the poll need no fence; the counters are zeroed on the
+//    call's stream before the launch.  (Two variants that keep the
+//    contract, a dirty codeword sweeping on without waiting and the last
+//    codewords spread over the SMs, each won on some loads and lost on
+//    others on the H100: tools/ldpc_tile_barrier.py, PERF.md.)
+// Nothing is decoded twice, and a codeword that relapses needs no case of
+// its own: its tile simply does not stop in that sweep.
+//
+// Deadlock freedom, whatever the load, W, segments or table, given G >=
+// min(W, 128), the largest tile (else the entry point refuses the call).
+// A block waits only at a barrier of the tile it holds, and only for that
+// tile's codewords to reach it.  Take the first tile T that has not
+// stopped.  If all its codewords are held, every holder runs its sweeps
+// and reaches each of T's barriers (a block holds one codeword at a time,
+// and the tiles before T hold none), so T stops.  Else let c be the
+// first codeword of T not taken: tickets go in order, so no block holds a
+// codeword after c and none has run out of tickets; every block that
+// holds a codeword holds one of T's before c, fewer than 128 <= G of
+// them, so some resident block holds none and takes c next.  Either way
+// T moves on, and by induction every tile stops.
 //
 // The BCH screen.  Syndrome bit (w, r) is the parity of popc(bytes[w] &
 // h[r]) over the row's 32-bit words; bit order inside a word does not
@@ -95,11 +113,9 @@ constexpr int NWARPS = THREADS / 32;
 constexpr int CLAMP = 56;
 constexpr unsigned KEY_NONE = 0x7fffffffu;  // key of a slot with no message
 constexpr int TILE = 128;  // codewords of a Pallas tile
-// the four launches of one call (see "Tile exit")
-enum Pass { PASS_FIRST = 0, PASS_TILE = 1, PASS_MASK = 2, PASS_FINAL = 3 };
-constexpr int MASK_WORDS = 4;  // clean-sweep mask: bit s = sweep s, bit 0 = set
-// the screen's tiles (its kernel below); the decoder's first pass zeroes
-// the screen's scratch, one SYN_WORDS row a codeword, one count a tile
+constexpr unsigned DIRTY = 1u << 16;  // a dirty codeword in a barrier word
+// the screen's tiles (its kernel below); the decoder zeroes the screen's
+// scratch, one SYN_WORDS row a codeword, one count a tile
 constexpr int SCR_TW = 64;     // codewords per screen block
 constexpr int SCR_TR = 32;     // syndrome rows per screen block
 constexpr int SYN_WORDS = 8;   // room for 256 syndrome rows
@@ -128,26 +144,24 @@ __device__ __forceinline__ int block_sum(int v, int* red) {
   return total;
 }
 
-__device__ __forceinline__ int block_max(int v, int* red) {
-  v = __reduce_max_sync(0xffffffffu, v);
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+// The tile barrier of one sweep (see "Tile exit"): true when none of the
+// tile's `members` codewords is dirty in it.  Every thread of the block
+// calls it with the same `dirty`; `flag` is shared.
+__device__ __forceinline__ bool tile_clean(unsigned* word, bool dirty,
+                                           int members, int* flag) {
+  if (members == 1) return !dirty;
+  if (threadIdx.x == 0) {
+    const unsigned add = dirty ? 1u + DIRTY : 1u;
+    unsigned v = atomicAdd(word, add) + add;
+    while ((int)(v & (DIRTY - 1)) != members) {
+      __nanosleep(200);
+      asm volatile("ld.relaxed.gpu.u32 %0, [%1];" : "=r"(v) : "l"(word)
+                   : "memory");
+    }
+    *flag = v < DIRTY;
+  }
   __syncthreads();
-  int out = red[0];
-#pragma unroll
-  for (int w = 1; w < NWARPS; ++w) out = max(out, red[w]);
-  __syncthreads();
-  return out;
-}
-
-__device__ __forceinline__ unsigned block_and(unsigned v, int* red) {
-  v = __reduce_and_sync(0xffffffffu, v);
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = (int)v;
-  __syncthreads();
-  unsigned out = (unsigned)red[0];
-#pragma unroll
-  for (int w = 1; w < NWARPS; ++w) out &= (unsigned)red[w];
-  __syncthreads();
-  return out;
+  return *flag;
 }
 
 // The MSB-first byte of eight hard bits: the sign bits of the posteriors
@@ -206,26 +220,37 @@ __device__ __forceinline__ void take_min(int t, int slot, unsigned& k1,
   k1 = min(k1, key);
 }
 
+// What one call hands the decoder kernel (see ldpc_layered_decode).
+struct Params {
+  const int8_t* llr;
+  uint32_t* packed;
+  int packed_words;
+  int8_t* ok;
+  int32_t* iters;
+  uint32_t* syn;      // the screen's scratch, or null without a screen
+  uint32_t* done;
+  unsigned* ticket;   // the next codeword to take
+  unsigned* barrier;  // one word a (tile, sweep but the last)
+  const int32_t* tiles;  // [n_tiles + 1] first codewords, then W
+  int n_tiles;
+  const int2* slot_tab;
+  const int32_t* row_tab;
+  int W, k, q, cnl, max_iters;
+};
+
 // MAXC: unrolled data slots.  UNIFORM: every row has cnl data slots and the
 // syndrome comes from the post-update signs (else from the pre-update signs
 // of the slots a row has).  FULL: cnl == MAXC, so no slot is predicated.
 template <int MAXC, bool UNIFORM, bool FULL>
 __global__ void __launch_bounds__(THREADS, MAXC <= 9 ? 3 : 2)
-ldpc_layered_kernel(const int8_t* __restrict__ llr,
-                    uint32_t* __restrict__ packed, int packed_words,
-                    int8_t* __restrict__ ok_out,
-                    int32_t* __restrict__ iters_out,
-                    int32_t* __restrict__ sweeps, uint32_t* __restrict__ masks,
-                    uint32_t* __restrict__ syn, uint32_t* __restrict__ done,
-                    const int32_t* __restrict__ seg, int n_seg,
-                    const int2* __restrict__ slot_tab,
-                    const int32_t* __restrict__ row_tab, int k, int q,
-                    int cnl_arg, int max_iters, int pass) {
+ldpc_layered_kernel(const Params p) {
   constexpr bool WIDE = MAXC > 13;
   using Word = typename StateWord<WIDE>::type;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int red[NWARPS];
-  const int cnl = FULL ? MAXC : cnl_arg;
+  __shared__ int taken, clean_flag;
+  const int k = p.k, q = p.q, max_iters = p.max_iters;
+  const int cnl = FULL ? MAXC : p.cnl;
   const int n = k + q * M;
   const int n16 = (n + 15) & ~15;
   int8_t* lam = reinterpret_cast<int8_t*>(smem);  // [k] data, then [q*M] parity
@@ -235,242 +260,210 @@ ldpc_layered_kernel(const int8_t* __restrict__ llr,
   int2* stab = reinterpret_cast<int2*>(smem + n16);
   int32_t* rtab = reinterpret_cast<int32_t*>(stab + q * cnl);
 
-  const int cw = blockIdx.x;
   const int tid = threadIdx.x;
   const int m = tid;  // check lane
   const bool active = m < M;
 
-  // Which sweeps this launch runs (see "Tile exit"); a block without work
-  // returns before it loads anything.
-  int target = max_iters;
-  const bool record = pass == PASS_MASK;
-  if (pass != PASS_FIRST) {
-    // this codeword's tile [lo, hi): TILE codewords from the start of its
-    // segment (the last segment starting at or before cw)
-    int a = 0, b = n_seg;
-    while (b - a > 1) {
-      const int mid = (a + b) >> 1;
-      if (seg[mid] <= cw) a = mid; else b = mid;
+  // row tables, once a block
+  for (int j = tid; j < q * cnl; j += THREADS) stab[j] = p.slot_tab[j];
+  for (int j = tid; j < q; j += THREADS) rtab[j] = p.row_tab[j];
+
+  for (;;) {  // one codeword a round, taken by ticket (see "Tile exit")
+    __syncthreads();  // the last round has read `taken` and the posteriors
+    if (tid == 0) taken = (int)atomicAdd(p.ticket, 1u);
+    __syncthreads();
+    const int cw = taken;
+    if (cw >= p.W) return;
+    // its tile: the last one starting at or before cw
+    int tile = 0, past = p.n_tiles;
+    while (past - tile > 1) {
+      const int mid = (tile + past) >> 1;
+      if (p.tiles[mid] <= cw) tile = mid; else past = mid;
     }
-    const int lo = seg[a] + (cw - seg[a]) / TILE * TILE;
-    const int hi = min(lo + TILE, seg[a + 1]);
-    const int j = lo + tid;  // THREADS >= TILE: one codeword a thread
-    if (pass == PASS_TILE || pass == PASS_MASK) {
-      const int t0 = block_max(j < hi ? sweeps[j] : 0, red);
-      if (pass == PASS_TILE) {
-        if (sweeps[cw] == t0) return;  // its outputs are those of sweep T0
-        target = t0;
-      } else {
-        const int dirty = block_sum(j < hi && ok_out[j] == 0, red);
-        if (t0 == max_iters || dirty == 0) return;  // settled at T0
+    const int members = p.tiles[tile + 1] - p.tiles[tile];
+    unsigned* bar = p.barrier + (size_t)tile * (max_iters - 1);
+
+    // the channel LLRs clamped below the weakest bit's correction capacity
+    const int8_t* llr_cw = p.llr + (size_t)cw * n;
+    if ((n & 15) == 0 && (reinterpret_cast<uintptr_t>(llr_cw) & 15) == 0) {
+      const uint4* s4 = reinterpret_cast<const uint4*>(llr_cw);
+      uint4* d4 = reinterpret_cast<uint4*>(lam);
+      for (int j = tid; j < n / 16; j += THREADS) {
+        uint4 v = __ldg(s4 + j);
+        v.x = clamp4(v.x);
+        v.y = clamp4(v.y);
+        v.z = clamp4(v.z);
+        v.w = clamp4(v.w);
+        d4[j] = v;
       }
-    } else {  // PASS_FINAL
-      if ((masks[(size_t)cw * MASK_WORDS] & 1u) == 0) return;
-      target = max_iters;
-      for (int w = MASK_WORDS - 1; w >= 0; --w) {
-        unsigned all = block_and(
-            j < hi ? masks[(size_t)j * MASK_WORDS + w] : ~0u, red);
-        if (w == 0) all &= ~1u;
-        if (all) target = min(target, 32 * w + __ffs(all) - 1);
-      }
+    } else {
+      for (int j = tid; j < n; j += THREADS)
+        lam[j] = (int8_t)min(max((int)llr_cw[j], -CLAMP), CLAMP);
     }
-  }
+    __syncthreads();
 
-  // row tables, then the channel LLRs clamped below the weakest bit's
-  // correction capacity
-  for (int j = tid; j < q * cnl; j += THREADS) stab[j] = slot_tab[j];
-  for (int j = tid; j < q; j += THREADS) rtab[j] = row_tab[j];
-  const int8_t* llr_cw = llr + (size_t)cw * n;
-  if ((n & 15) == 0 && (reinterpret_cast<uintptr_t>(llr_cw) & 15) == 0) {
-    const uint4* s4 = reinterpret_cast<const uint4*>(llr_cw);
-    uint4* d4 = reinterpret_cast<uint4*>(lam);
-    for (int j = tid; j < n / 16; j += THREADS) {
-      uint4 v = __ldg(s4 + j);
-      v.x = clamp4(v.x);
-      v.y = clamp4(v.y);
-      v.z = clamp4(v.z);
-      v.w = clamp4(v.w);
-      d4[j] = v;
-    }
-  } else {
-    for (int j = tid; j < n; j += THREADS)
-      lam[j] = (int8_t)min(max((int)llr_cw[j], -CLAMP), CLAMP);
-  }
-  __syncthreads();
+    int unsat = 0, first = 0;
+    Word wnext = 0;
+    for (int it = 0; it < max_iters; ++it) {
+      int my_unsat = 0;
+      for (int i = 0; i < q; ++i) {
+        const int info = rtab[i];
+        const int cnt_i = FULL ? MAXC : (info & 0xff);
+        const int nfirst = (info >> 8) & 0xff;
+        if (info >> 16) __syncthreads();
+        const int2* erow = stab + i * cnl;
+        const int ip = i > 0 ? i - 1 : q - 1;
+        const int pm = i > 0 ? m : m - 1;  // check (row 0, lane 0) has none
+        const bool valid_prev = active && pm >= 0;
+        int t[MAXC], src[MAXC];
+        int t_self = 0, t_prev = 0;
+        int synacc = 0;    // syndrome parity, in the sign bit
+        unsigned tsg = 0;  // sign of every slot's t, shifted in slot by slot
+        unsigned k1 = KEY_NONE, k2 = KEY_NONE;
 
-  int unsat = 0, first = 0;
-  Word wnext = 0;
-  for (int it = 0; it < target; ++it) {
-    int my_unsat = 0;
-    for (int i = 0; i < q; ++i) {
-      const int info = rtab[i];
-      const int cnt_i = FULL ? MAXC : (info & 0xff);
-      const int nfirst = (info >> 8) & 0xff;
-      if (info >> 16) __syncthreads();
-      const int2* erow = stab + i * cnl;
-      const int ip = i > 0 ? i - 1 : q - 1;
-      const int pm = i > 0 ? m : m - 1;  // check (row 0, lane 0) has none
-      const bool valid_prev = active && pm >= 0;
-      int t[MAXC], src[MAXC];
-      int t_self = 0, t_prev = 0;
-      int synacc = 0;    // syndrome parity, in the sign bit
-      unsigned tsg = 0;  // sign of every slot's t, shifted in slot by slot
-      unsigned k1 = KEY_NONE, k2 = KEY_NONE;
+        // the row's old messages come from the word written a sweep ago
+        // (all zero in the first sweep); the next row's word is asked for now
+        const Word word = it == 0 ? (Word)0 : wnext;
+        wnext = state[i + 1 < q ? i + 1 : 0];
+        const unsigned lo = (unsigned)word;
+        const Messages old(lo & 63, (lo >> 6) & 63, (lo >> 12) & 31);
+        // sign bits: data slot j at 17 + j, then the two parity slots
+#define OLD_MSG(slot)                                     \
+    old((slot), (unsigned)(word >> ((17 + (slot)) & 32)), \
+        1u << ((17 + (slot)) & 31))
 
-      // the row's old messages come from the word written a sweep ago
-      // (all zero in the first sweep); the next row's word is asked for now
-      const Word word = it == 0 ? (Word)0 : wnext;
-      wnext = state[i + 1 < q ? i + 1 : 0];
-      const unsigned lo = (unsigned)word;
-      const Messages old(lo & 63, (lo >> 6) & 63, (lo >> 12) & 31);
-      // sign bits: data slot j at 17 + j, then the two parity slots
-#define OLD_MSG(slot)                                   \
-  old((slot), (unsigned)(word >> ((17 + (slot)) & 32)), \
-      1u << ((17 + (slot)) & 31))
-
-      // ---------------- pass 1: gather, mins, signs ----------------
-      if (active) {
+        // ---------------- pass 1: gather, mins, signs ----------------
+        if (active) {
 #pragma unroll
-        for (int slot = 0; slot < MAXC; ++slot) {
-          int tt = 0;
-          if (FULL || slot < cnt_i) {
-            const int2 e = erow[slot];  // (group base, shift)
-            // lane m - shift, wrapped: the smaller of the two as unsigned
-            const unsigned back = (unsigned)(m - e.y);
-            const int a = e.x + (int)__viaddmin_u32(back, (unsigned)M, back);
-            src[slot] = a;
-            const int slab = lam[a];
-            tt = slab - OLD_MSG(slot);
-            if (!UNIFORM) synacc ^= slab;
-            take_min(tt, slot, k1, k2);
+          for (int slot = 0; slot < MAXC; ++slot) {
+            int tt = 0;
+            if (FULL || slot < cnt_i) {
+              const int2 e = erow[slot];  // (group base, shift)
+              // lane m - shift, wrapped: the smaller of the two as unsigned
+              const unsigned back = (unsigned)(m - e.y);
+              const int a = e.x + (int)__viaddmin_u32(back, (unsigned)M, back);
+              src[slot] = a;
+              const int slab = lam[a];
+              tt = slab - OLD_MSG(slot);
+              if (!UNIFORM) synacc ^= slab;
+              take_min(tt, slot, k1, k2);
+            }
+            t[slot] = tt;
+            tsg = __funnelshift_l((unsigned)tt, tsg, 1);
           }
-          t[slot] = tt;
-          tsg = __funnelshift_l((unsigned)tt, tsg, 1);
+          const int p_self = par[i * M + m];
+          t_self = p_self - OLD_MSG(MAXC);
+          if (!UNIFORM) synacc ^= p_self;
+          tsg = __funnelshift_l((unsigned)t_self, tsg, 1);
+          take_min(t_self, MAXC, k1, k2);
+          if (valid_prev) {
+            const int p_prev = par[ip * M + pm];
+            t_prev = p_prev - OLD_MSG(MAXC + 1);
+            if (!UNIFORM) synacc ^= p_prev;
+            take_min(t_prev, MAXC + 1, k1, k2);
+          }
+          tsg = __funnelshift_l((unsigned)t_prev, tsg, 1);
         }
-        const int p_self = par[i * M + m];
-        t_self = p_self - OLD_MSG(MAXC);
-        if (!UNIFORM) synacc ^= p_self;
-        tsg = __funnelshift_l((unsigned)t_self, tsg, 1);
-        take_min(t_self, MAXC, k1, k2);
-        if (valid_prev) {
-          const int p_prev = par[ip * M + pm];
-          t_prev = p_prev - OLD_MSG(MAXC + 1);
-          if (!UNIFORM) synacc ^= p_prev;
-          take_min(t_prev, MAXC + 1, k1, k2);
-        }
-        tsg = __funnelshift_l((unsigned)t_prev, tsg, 1);
-      }
-      // offset (beta = 1) and cap, once per row
-      const int c1 = min(max((int)(k1 >> 5) - 1, 0), 32);
-      const int c2 = min(max((int)(k2 >> 5) - 1, 0), 32);
-      const Messages out(c1, c2, k1 & 31);
-      // a slot's message has the sign of its t times the row's sign parity
-      const unsigned tsr = __brev(tsg) >> (32 - (MAXC + 2));  // slot j, bit j
-      const unsigned carry = (FULL ? (1u << MAXC) - 1u : (1u << cnt_i) - 1u) |
-                             1u << MAXC | (unsigned)valid_prev << (MAXC + 1);
-      const unsigned signs = (__popc(tsr) & 1) ? tsr ^ carry : tsr;
+        // offset (beta = 1) and cap, once per row
+        const int c1 = min(max((int)(k1 >> 5) - 1, 0), 32);
+        const int c2 = min(max((int)(k2 >> 5) - 1, 0), 32);
+        const Messages out(c1, c2, k1 & 31);
+        // a slot's message has the sign of its t times the row's sign parity
+        const unsigned tsr = __brev(tsg) >> (32 - (MAXC + 2));  // slot j, bit j
+        const unsigned carry = (FULL ? (1u << MAXC) - 1u : (1u << cnt_i) - 1u) |
+                               1u << MAXC | (unsigned)valid_prev << (MAXC + 1);
+        const unsigned signs = (__popc(tsr) & 1) ? tsr ^ carry : tsr;
 #define NEW_MSG(slot) out((slot), signs, 1u << (slot))
 
-      // ---------------- pass 2: emit messages, update -------------
-      // A first occurrence reads and writes its posterior in one thread:
-      // lam + msg - old = t + msg.  Rows with a repeated group meet before
-      // the first write and before each repeat's read-modify-write.
-      const bool repeats = nfirst < cnt_i;
-      if (repeats) __syncthreads();
-      if (active) {
-        if (FULL && !repeats) {  // most rows: every slot, no predicate
+        // ---------------- pass 2: emit messages, update -------------
+        // A first occurrence reads and writes its posterior in one thread:
+        // lam + msg - old = t + msg.  Rows with a repeated group meet before
+        // the first write and before each repeat's read-modify-write.
+        const bool repeats = nfirst < cnt_i;
+        if (repeats) __syncthreads();
+        if (active) {
+          if (FULL && !repeats) {  // most rows: every slot, no predicate
 #pragma unroll
-          for (int slot = 0; slot < MAXC; ++slot) {
-            const int upd = add_clip127(t[slot], NEW_MSG(slot));
-            lam[src[slot]] = (int8_t)upd;
-            if (UNIFORM) synacc ^= upd;
-          }
-        } else {
-#pragma unroll
-          for (int slot = 0; slot < MAXC; ++slot) {
-            if (slot < nfirst) {
+            for (int slot = 0; slot < MAXC; ++slot) {
               const int upd = add_clip127(t[slot], NEW_MSG(slot));
               lam[src[slot]] = (int8_t)upd;
               if (UNIFORM) synacc ^= upd;
             }
-          }
-        }
-      }
-      if (repeats) {
+          } else {
 #pragma unroll
-        for (int slot = 1; slot < MAXC; ++slot) {
-          if (slot >= nfirst && slot < cnt_i) {
-            __syncthreads();
-            if (active) {
-              const int upd = add_clip127(
-                  (int)lam[src[slot]] - OLD_MSG(slot), NEW_MSG(slot));
-              lam[src[slot]] = (int8_t)upd;
-              if (UNIFORM) synacc ^= upd;
+            for (int slot = 0; slot < MAXC; ++slot) {
+              if (slot < nfirst) {
+                const int upd = add_clip127(t[slot], NEW_MSG(slot));
+                lam[src[slot]] = (int8_t)upd;
+                if (UNIFORM) synacc ^= upd;
+              }
             }
           }
         }
-      }
-      if (active) {
-        const int upd_self = add_clip127(t_self, NEW_MSG(MAXC));
-        par[i * M + m] = (int8_t)upd_self;
-        if (UNIFORM) synacc ^= upd_self;
-        if (valid_prev) {
-          const int upd_prev = add_clip127(t_prev, NEW_MSG(MAXC + 1));
-          par[ip * M + pm] = (int8_t)upd_prev;
-          if (UNIFORM) synacc ^= upd_prev;
+        if (repeats) {
+#pragma unroll
+          for (int slot = 1; slot < MAXC; ++slot) {
+            if (slot >= nfirst && slot < cnt_i) {
+              __syncthreads();
+              if (active) {
+                const int upd = add_clip127(
+                    (int)lam[src[slot]] - OLD_MSG(slot), NEW_MSG(slot));
+                lam[src[slot]] = (int8_t)upd;
+                if (UNIFORM) synacc ^= upd;
+              }
+            }
+          }
         }
-        state[i] = (Word)(c1 | (c2 << 6) | ((k1 & 31) << 12)) |
-                   (Word)signs << 17;
-        my_unsat += (unsigned)synacc >> 31;
-      }
+        if (active) {
+          const int upd_self = add_clip127(t_self, NEW_MSG(MAXC));
+          par[i * M + m] = (int8_t)upd_self;
+          if (UNIFORM) synacc ^= upd_self;
+          if (valid_prev) {
+            const int upd_prev = add_clip127(t_prev, NEW_MSG(MAXC + 1));
+            par[ip * M + pm] = (int8_t)upd_prev;
+            if (UNIFORM) synacc ^= upd_prev;
+          }
+          state[i] = (Word)(c1 | (c2 << 6) | ((k1 & 31) << 12)) |
+                     (Word)signs << 17;
+          my_unsat += (unsigned)synacc >> 31;
+        }
 #undef NEW_MSG
 #undef OLD_MSG
-    }
-    unsat = block_sum(my_unsat, red);
-    if (unsat == 0) {
-      if (first == 0) first = it + 1;
-      if (record && tid == 0)
-        masks[(size_t)cw * MASK_WORDS + ((it + 1) >> 5)] |= 1u << ((it + 1) & 31);
-      if (pass == PASS_FIRST) break;  // the first clean sweep
-    }
-  }
-  if (record) {  // a mask pass writes no outputs
-    if (tid == 0) masks[(size_t)cw * MASK_WORDS] |= 1u;
-    return;
-  }
-
-  // ---------------- epilogue: the BB frame's bytes ----------------
-  // Each thread writes whole 32-bit words of the padded row; a byte is the
-  // sign bits of eight posteriors (two 32-bit loads), past k/8 it is zero.
-  const int kb = k >> 3;  // k is a multiple of 360
-  uint32_t* row = packed + (size_t)cw * packed_words;
-  const uint2* lam8 = reinterpret_cast<const uint2*>(lam);
-  for (int j = tid; j < packed_words; j += THREADS) {
-    unsigned word = 0;
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      if (4 * j + b < kb) {
-        const uint2 v = lam8[4 * j + b];
-        word |= msb_byte(v.x, v.y) << (8 * b);
       }
+      unsat = block_sum(my_unsat, red);
+      if (unsat == 0 && first == 0) first = it + 1;
+      // the tile stops together, in its first sweep with no dirty codeword
+      if (it + 1 < max_iters &&
+          tile_clean(bar + it, unsat != 0, members, &clean_flag))
+        break;
     }
-    row[j] = word;
-  }
-  if (tid == 0) {
-    const int iters = unsat == 0 ? first : max_iters;
-    ok_out[cw] = (int8_t)(unsat == 0);
-    iters_out[cw] = iters;
-    if (pass == PASS_FIRST) {
-      sweeps[cw] = iters;  // the sweeps it ran
+
+    // ---------------- epilogue: the BB frame's bytes ----------------
+    // Each thread writes whole 32-bit words of the padded row; a byte is the
+    // sign bits of eight posteriors (two 32-bit loads), past k/8 it is zero.
+    const int kb = k >> 3;  // k is a multiple of 360
+    uint32_t* row = p.packed + (size_t)cw * p.packed_words;
+    const uint2* lam8 = reinterpret_cast<const uint2*>(lam);
+    for (int j = tid; j < p.packed_words; j += THREADS) {
+      unsigned word = 0;
 #pragma unroll
-      for (int w = 0; w < MASK_WORDS; ++w)
-        masks[(size_t)cw * MASK_WORDS + w] = 0;
+      for (int b = 0; b < 4; ++b) {
+        if (4 * j + b < kb) {
+          const uint2 v = lam8[4 * j + b];
+          word |= msb_byte(v.x, v.y) << (8 * b);
+        }
+      }
+      row[j] = word;
     }
-  }
-  if (pass == PASS_FIRST && syn != nullptr) {  // the screen's scratch
-    if (tid < SYN_WORDS) syn[(size_t)cw * SYN_WORDS + tid] = 0;
-    if (tid == 0 && cw % SCR_TW == 0) done[cw / SCR_TW] = 0;
-  }
+    if (tid == 0) {
+      p.ok[cw] = (int8_t)(unsat == 0);
+      p.iters[cw] = unsat == 0 ? first : max_iters;
+    }
+    if (p.syn != nullptr) {  // the screen's scratch
+      if (tid < SYN_WORDS) p.syn[(size_t)cw * SYN_WORDS + tid] = 0;
+      if (tid == 0 && cw % SCR_TW == 0) p.done[cw / SCR_TW] = 0;
+    }
+  }  // the next codeword
 }
 
 // ---------------------------------------------------------------------------
@@ -624,65 +617,68 @@ size_t shared_bytes(int k, int q, int cnl) {
   return n16 + (size_t)q * cnl * sizeof(int2) + (size_t)q * 4;
 }
 
-struct Args {
-  const int8_t* llr;
-  uint32_t* packed;
-  int packed_words;
-  int8_t* ok;
-  int32_t* iters;
-  int32_t* sweeps;
-  uint32_t* masks;
-  uint32_t* syn;
-  uint32_t* done;
-  const int32_t* seg;
-  int n_seg;
-  const int2* slot_tab;
-  const int32_t* row_tab;
-  int W, k, q, cnl, max_iters;
-  size_t smem;
-  cudaStream_t stream;
-};
-
-// The decoder's four passes (see "Tile exit").
+// The decoder kernel of a template: sets its shared memory, counts the
+// blocks that fit the card at once (*capacity), and when `launch` is set
+// launches min(W, capacity) of them cooperatively on `stream` (see "Tile
+// exit"), after zeroing the ticket and the barrier words.
 template <int MAXC, bool UNIFORM, bool FULL>
-cudaError_t launch(const Args& a) {
+cudaError_t run(const Params& p, size_t smem, cudaStream_t stream, bool launch,
+                int* capacity) {
   auto kern = ldpc_layered_kernel<MAXC, UNIFORM, FULL>;
   cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)a.smem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  for (int pass = PASS_FIRST; pass <= PASS_FINAL; ++pass) {
-    kern<<<a.W, THREADS, a.smem, a.stream>>>(
-        a.llr, a.packed, a.packed_words, a.ok, a.iters, a.sweeps, a.masks,
-        a.syn, a.done, a.seg, a.n_seg, a.slot_tab, a.row_tab, a.k, a.q,
-        a.cnl, a.max_iters, pass);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return e;
+  int device = 0, sms = 0, per_sm = 0;
+  if ((e = cudaGetDevice(&device)) != cudaSuccess) return e;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e != cudaSuccess) return e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, THREADS,
+                                                    smem);
+  if (e != cudaSuccess) return e;
+  *capacity = per_sm * sms;
+  if (!launch) return cudaSuccess;
+  const int need = min(p.W, TILE);  // the largest tile the call can have
+  if (*capacity < need) {
+    snprintf(g_detail, sizeof g_detail,
+             "%d decoder blocks fit this device at once (%d an SM on %d SMs, "
+             "%zu B of shared memory each); a tile of %d codewords needs "
+             "them all resident",
+             *capacity, per_sm, sms, smem, need);
+    return cudaErrorCooperativeLaunchTooLarge;
   }
-  return cudaSuccess;
+  const size_t counters = 1 + (size_t)p.n_tiles * (p.max_iters - 1);
+  e = cudaMemsetAsync(p.ticket, 0, counters * sizeof(unsigned), stream);
+  if (e != cudaSuccess) return e;
+  void* args[] = {const_cast<Params*>(&p)};
+  return cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kern),
+                                     dim3(min(p.W, *capacity)), dim3(THREADS),
+                                     args, smem, stream);
 }
 
-cudaError_t dispatch(const Args& a, int slots, bool uniform) {
-  if (exact_slots(a.cnl, uniform)) {
+cudaError_t dispatch(const Params& p, size_t smem, cudaStream_t stream,
+                     bool launch, int* capacity, bool uniform) {
+  const int slots = template_slots(p.cnl, uniform);
+  if (exact_slots(p.cnl, uniform)) {
     switch (slots) {
-      case 5: return launch<5, true, true>(a);
-      case 8: return launch<8, true, true>(a);
-      case 9: return launch<9, true, true>(a);
-      case 12: return launch<12, true, true>(a);
-      case 16: return launch<16, true, true>(a);
-      default: return launch<20, true, true>(a);
+      case 5: return run<5, true, true>(p, smem, stream, launch, capacity);
+      case 8: return run<8, true, true>(p, smem, stream, launch, capacity);
+      case 9: return run<9, true, true>(p, smem, stream, launch, capacity);
+      case 12: return run<12, true, true>(p, smem, stream, launch, capacity);
+      case 16: return run<16, true, true>(p, smem, stream, launch, capacity);
+      default: return run<20, true, true>(p, smem, stream, launch, capacity);
     }
   }
   if (uniform) {
     switch (slots) {
-      case 5: return launch<5, true, false>(a);
-      case 13: return launch<13, true, false>(a);
-      default: return launch<20, true, false>(a);
+      case 5: return run<5, true, false>(p, smem, stream, launch, capacity);
+      case 13: return run<13, true, false>(p, smem, stream, launch, capacity);
+      default: return run<20, true, false>(p, smem, stream, launch, capacity);
     }
   }
   switch (slots) {
-    case 5: return launch<5, false, false>(a);
-    case 13: return launch<13, false, false>(a);
-    default: return launch<20, false, false>(a);
+    case 5: return run<5, false, false>(p, smem, stream, launch, capacity);
+    case 13: return run<13, false, false>(p, smem, stream, launch, capacity);
+    default: return run<20, false, false>(p, smem, stream, launch, capacity);
   }
 }
 
@@ -701,44 +697,60 @@ extern "C" int ldpc_layered_shared_bytes(int k, int q, int cnl, int uniform) {
   return slots ? (int)shared_bytes(k, q, cnl) : -1;
 }
 
-// Launches of the decoder kernel a call makes: its passes (see "Tile
-// exit"), each a launch, whatever work they find.
-extern "C" int ldpc_layered_passes() { return PASS_FINAL + 1; }
+// Launches of the decoder kernel a call makes (see "Tile exit").
+extern "C" int ldpc_layered_passes() { return 1; }
 
-// Int32 words of scratch a call of W codewords needs (the wrapper
-// allocates them; their contents need not be set).
-extern "C" int ldpc_layered_scratch_words(int W) {
-  return W * (1 + MASK_WORDS + SYN_WORDS) + (W + SCR_TW - 1) / SCR_TW;
+// Decoder blocks of a table that fit the current device at once: the
+// persistent grid of a call of W codewords is min(W, this).  Negative: a
+// cudaError_t, or -1 where no kernel serves the table.
+extern "C" int ldpc_layered_capacity(int k, int q, int cnl, int uniform) {
+  if (template_slots(cnl, uniform != 0) == 0) return -1;
+  Params p{};
+  p.cnl = cnl;
+  int capacity = 0;
+  const cudaError_t e = dispatch(p, shared_bytes(k, q, cnl), nullptr, false,
+                                 &capacity, uniform != 0);
+  return e == cudaSuccess ? capacity : -(int)e;
+}
+
+// Int32 words of scratch a call of W codewords in n_tiles tiles needs (the
+// wrapper allocates them; their contents need not be set): the screen's
+// syndrome rows and tile counts, the ticket, a barrier word a tile and
+// sweep but the last.
+extern "C" int ldpc_layered_scratch_words(int W, int n_tiles, int max_iters) {
+  return W * SYN_WORDS + (W + SCR_TW - 1) / SCR_TW + 1 +
+         n_tiles * (max_iters - 1);
 }
 
 // llr int8 [W, k + q*360] in kernel bit order -> packed uint8 [W,
 // 4 * packed_words]: the hard bits of [0, k) MSB first (np.packbits), the
 // rest of the row zero; ok int8 [W]; iters int32 [W]; clean int8 [W]
-// (written when n_syn > 0).  scratch: ldpc_layered_scratch_words(W) int32.
-// seg int32 [n_seg + 1]: the segments' first codewords, then W; tiles of
-// 128 codewords count from each segment's start.  slot_tab int32 [q, cnl,
-// 2] = (group * 360, shift); row_tab int32 [q] = cnt | nfirst << 8 | sync
-// << 16; h_bits uint32 [n_syn, packed_words], H packed as the rows are
-// (n_syn = 0: no BCH screen).  Launches the decoder's four passes and
-// behind them the screen on `stream`; does not synchronize.  Returns a
-// cudaError_t (0 = launched); after cudaErrorInvalidValue,
-// last_error_detail() says which argument.
+// (written when n_syn > 0).  scratch: ldpc_layered_scratch_words(W,
+// n_tiles, max_iters) int32.  tiles int32 [n_tiles + 1]: the first
+// codeword of each exit tile (128 codewords from each segment's start,
+// ops/ldpc.py tile_starts), then W.  slot_tab int32 [q, cnl, 2] = (group
+// * 360, shift); row_tab int32 [q] = cnt | nfirst << 8 | sync << 16;
+// h_bits uint32 [n_syn, packed_words], H packed as the rows are (n_syn =
+// 0: no BCH screen).  Launches the decoder once and behind it the screen
+// on `stream`; does not synchronize.  Returns a cudaError_t (0 =
+// launched); after cudaErrorInvalidValue or
+// cudaErrorCooperativeLaunchTooLarge, last_error_detail() says why.
 extern "C" int ldpc_layered_decode(
     const void* llr, void* packed, int packed_words, void* ok, void* iters,
-    void* clean, void* scratch, const void* seg, int n_seg,
+    void* clean, void* scratch, const void* tiles, int n_tiles,
     const void* slot_tab, const void* row_tab, const void* h_bits, int n_syn,
     int W, int k, int q, int cnl, int uniform, int max_iters, void* stream) {
   g_detail[0] = 0;
   if (W == 0) return 0;
   const int slots = template_slots(cnl, uniform != 0);
   if (slots == 0 || q < 2 || q > (slots > 13 ? MAXQ_WIDE : MAXQ_NARROW) ||
-      k % M != 0 || max_iters < 1 || max_iters >= 32 * MASK_WORDS ||
-      packed_words % 4 != 0 || 4 * packed_words < k / 8 || n_seg < 1 ||
-      n_syn < 0 || n_syn > 32 * SYN_WORDS) {
+      k % M != 0 || max_iters < 1 || packed_words % 4 != 0 ||
+      4 * packed_words < k / 8 || n_tiles < 1 || n_tiles > W || n_syn < 0 ||
+      n_syn > 32 * SYN_WORDS) {
     snprintf(g_detail, sizeof g_detail,
              "unsupported arguments: k=%d q=%d cnl=%d uniform=%d max_iters=%d "
-             "packed_words=%d n_seg=%d n_syn=%d",
-             k, q, cnl, uniform, max_iters, packed_words, n_seg, n_syn);
+             "packed_words=%d n_tiles=%d n_syn=%d",
+             k, q, cnl, uniform, max_iters, packed_words, n_tiles, n_syn);
     return (int)cudaErrorInvalidValue;
   }
   int device = 0, smem_max = 0, sms = 0;
@@ -759,22 +771,30 @@ extern "C" int ldpc_layered_decode(
     return (int)cudaErrorInvalidValue;
   }
   uint32_t* s32 = static_cast<uint32_t*>(scratch);
-  const Args a{static_cast<const int8_t*>(llr),
-               static_cast<uint32_t*>(packed),
-               packed_words,
-               static_cast<int8_t*>(ok),
-               static_cast<int32_t*>(iters),
-               reinterpret_cast<int32_t*>(s32),
-               s32 + W,
-               n_syn > 0 ? s32 + W * (1 + MASK_WORDS) : nullptr,
-               s32 + W * (1 + MASK_WORDS + SYN_WORDS),
-               static_cast<const int32_t*>(seg),
-               n_seg,
-               static_cast<const int2*>(slot_tab),
-               static_cast<const int32_t*>(row_tab),
-               W, k, q, cnl, max_iters, smem,
-               static_cast<cudaStream_t>(stream)};
-  e = dispatch(a, slots, uniform != 0);
+  uint32_t* done = s32 + (size_t)W * SYN_WORDS;
+  unsigned* ticket = done + (W + SCR_TW - 1) / SCR_TW;
+  Params p{};
+  p.llr = static_cast<const int8_t*>(llr);
+  p.packed = static_cast<uint32_t*>(packed);
+  p.packed_words = packed_words;
+  p.ok = static_cast<int8_t*>(ok);
+  p.iters = static_cast<int32_t*>(iters);
+  p.syn = n_syn > 0 ? s32 : nullptr;
+  p.done = done;
+  p.ticket = ticket;
+  p.barrier = ticket + 1;
+  p.tiles = static_cast<const int32_t*>(tiles);
+  p.n_tiles = n_tiles;
+  p.slot_tab = static_cast<const int2*>(slot_tab);
+  p.row_tab = static_cast<const int32_t*>(row_tab);
+  p.W = W;
+  p.k = k;
+  p.q = q;
+  p.cnl = cnl;
+  p.max_iters = max_iters;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int capacity = 0;
+  e = dispatch(p, smem, st, true, &capacity, uniform != 0);
   if (e != cudaSuccess || n_syn == 0) return (int)e;
   e = cudaFuncSetAttribute(bch_screen_kernel,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -785,9 +805,9 @@ extern "C" int ldpc_layered_decode(
   const int splits = screen_splits(gx * gy, n_chunks, sms);
   const int per_split = (n_chunks + splits - 1) / splits;
   const dim3 grid(gx, gy, (n_chunks + per_split - 1) / per_split);
-  bch_screen_kernel<<<grid, SCR_THREADS, SCR_SMEM, a.stream>>>(
-      a.packed, static_cast<const uint32_t*>(h_bits),
-      static_cast<int8_t*>(clean), a.syn, a.done, W, n_syn, packed_words,
+  bch_screen_kernel<<<grid, SCR_THREADS, SCR_SMEM, st>>>(
+      p.packed, static_cast<const uint32_t*>(h_bits),
+      static_cast<int8_t*>(clean), p.syn, p.done, W, n_syn, packed_words,
       per_split);
   return (int)cudaGetLastError();
 }

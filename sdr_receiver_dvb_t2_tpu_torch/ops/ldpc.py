@@ -5,9 +5,9 @@ the same message algebra on the DVB-T2 QC-IRA codes, in two forms that
 compute the same function:
 
 * ``ops/csrc/ldpc_layered.cu``: the CUDA kernels (the decoder, one thread
-  block per codeword, which writes the BB frame's bytes, and the BCH
-  screen over those bytes), launched by :class:`LayeredDecoder` on a CUDA
-  tensor;
+  block a codeword at a time on a persistent grid, which writes the BB
+  frame's bytes, and the BCH screen over those bytes), launched by
+  :class:`LayeredDecoder` on a CUDA tensor;
 * :func:`decode_plain`: the plain PyTorch twin, the same integer algebra on
   [W, 360] slabs with ``torch.roll``, used for a CPU tensor and to check
   the kernel.
@@ -50,8 +50,11 @@ each *segment*: one call of :class:`LayeredDecoder` can stand for several
 Pallas calls (the pod decodes one per device), and ``segments`` gives
 their codeword counts.  The twin also takes ``exit_tile`` (``1``: each
 codeword leaves at its first clean sweep, which the tests use to show
-that the contracts differ).  The CUDA kernel cannot make blocks wait for
-each other, so it decodes in passes (its header, "Tile exit").
+that the contracts differ).  The CUDA kernel keeps the contract in one
+launch: a tile's codewords sweep in lockstep and meet after every sweep
+at a counter in device memory (its header, "Tile exit", with the proof
+that the meeting cannot deadlock); it finds a codeword's tile in the
+table of :func:`tile_starts`.
 """
 from __future__ import annotations
 
@@ -377,9 +380,20 @@ def tile_index(segments, w: int, exit_tile: int = TILE) -> np.ndarray:
     return tile
 
 
+def tile_starts(segments, w: int, exit_tile: int = TILE) -> list:
+    """The kernel's tile table: the first codeword of each exit tile of a
+    call of W codewords (``exit_tile`` codewords from the start of each
+    segment), then W.  Codeword c lies in the last tile starting at or
+    before it: the tiles of :func:`tile_index`."""
+    starts = segment_starts(segments, w)
+    firsts = [c for a, b in zip(starts[:-1], starts[1:])
+              for c in range(a, b, exit_tile)]
+    return firsts + [w]
+
+
 def decoder_passes() -> int:
-    """Launches of the decoder kernel one call on the card makes (its
-    passes, ``ldpc_layered.cu`` "Tile exit"); builds the kernel."""
+    """Launches of the decoder kernel one call on the card makes (one:
+    ``ldpc_layered.cu`` "Tile exit"); builds the kernel."""
     from ._build import load_kernel
     return load_kernel("ldpc_layered").ldpc_layered_passes()
 
@@ -456,8 +470,11 @@ class LayeredDecoder:
     padded to 16 bytes; on a CPU tensor it runs :func:`decode_plain` with
     the same tiles and packs its bits with ``bch_ops.pack_bits``.
     ``launches`` counts the decoder kernel's launches (a call on the card
-    makes :func:`decoder_passes` of them), ``screen_launches`` those of
-    the BCH screen kernel behind it, one a call when ``bch_h`` is given.
+    makes :func:`decoder_passes` of them, one), ``screen_launches`` those
+    of the BCH screen kernel behind it, one a call when ``bch_h`` is
+    given.  A device on which fewer decoder blocks fit at once than a
+    tile has codewords (:meth:`resident_blocks`) is refused: the call
+    raises.
     """
 
     launches = 0
@@ -482,7 +499,7 @@ class LayeredDecoder:
             raise ValueError(f"bch_h must have {plan.k} rows, one per "
                              f"information bit, got {bch_h.shape}")
         self._dev = {}
-        self._segs = {}
+        self._tiles = {}
 
     @property
     def shared_bytes(self) -> int:
@@ -503,19 +520,31 @@ class LayeredDecoder:
                 for a in (*self._host_tabs, h.view(np.int32)))
         return self._dev[device]
 
-    def _device_segments(self, starts: list, device):
+    def _device_tiles(self, starts: list, device):
         key = (tuple(starts), device)
-        if key not in self._segs:
-            self._segs[key] = torch.tensor(starts, dtype=torch.int32,
-                                           device=device)
-        return self._segs[key]
+        if key not in self._tiles:
+            self._tiles[key] = torch.tensor(starts, dtype=torch.int32,
+                                            device=device)
+        return self._tiles[key]
+
+    def resident_blocks(self) -> int:
+        """Decoder blocks of this table that fit the current card at once
+        (the persistent grid of a call is the smaller of this and W);
+        builds the kernel."""
+        from ._build import load_kernel
+        plan = self.plan
+        n = load_kernel("ldpc_layered").ldpc_layered_capacity(
+            plan.k, plan.q, plan.cnl, int(self.uniform))
+        if n < 0:
+            raise RuntimeError(f"no decoder kernel for {self.table_name} on "
+                               f"this device (code {n})")
+        return n
 
     def __call__(self, llr: torch.Tensor, segments=None):
         plan = self.plan
         if llr.dtype != torch.int8 or llr.dim() != 2 or llr.shape[1] != plan.n:
             raise ValueError(f"llr must be int8 [W, {plan.n}], got "
                              f"{llr.dtype} {tuple(llr.shape)}")
-        starts = segment_starts(segments, llr.shape[0])
         if llr.device.type == "cpu":
             from .bch_ops import pack_bits
             hard, ok, iters, clean = decode_plain(
@@ -526,28 +555,30 @@ class LayeredDecoder:
             raise ValueError(f"unsupported device {llr.device}")
         if not llr.is_contiguous():
             raise ValueError("llr must be contiguous")
-        return self._launch(llr, starts)
+        return self._launch(llr, segments)
 
-    def _launch(self, llr, starts):
+    def _launch(self, llr, segments):
         from ._build import load_kernel
         lib = load_kernel("ldpc_layered")
         plan = self.plan
         w, dev = llr.shape[0], llr.device
         slot_tab, row_tab, h = self._device_tabs(dev)
-        seg = self._device_segments(starts, dev)
+        tiles = self._device_tiles(tile_starts(segments, w), dev)
         screen = self.bch_h is not None
         packed = torch.empty((w, packed_row_bytes(plan.k)), dtype=torch.uint8,
                              device=dev)
         ok = torch.empty(w, dtype=torch.int8, device=dev)
         iters = torch.empty(w, dtype=torch.int32, device=dev)
         clean = torch.empty(w, dtype=torch.int8, device=dev)
-        scratch = torch.empty(lib.ldpc_layered_scratch_words(w),
-                              dtype=torch.int32, device=dev)
+        scratch = torch.empty(
+            lib.ldpc_layered_scratch_words(w, tiles.numel() - 1,
+                                           self.max_iters),
+            dtype=torch.int32, device=dev)
         p = ctypes.c_void_p
         err = lib.ldpc_layered_decode(
             p(llr.data_ptr()), p(packed.data_ptr()), packed.shape[1] // 4,
             p(ok.data_ptr()), p(iters.data_ptr()), p(clean.data_ptr()),
-            p(scratch.data_ptr()), p(seg.data_ptr()), len(starts) - 1,
+            p(scratch.data_ptr()), p(tiles.data_ptr()), tiles.numel() - 1,
             p(slot_tab.data_ptr()), p(row_tab.data_ptr()), p(h.data_ptr()),
             h.shape[0], w, plan.k, plan.q, plan.cnl, int(self.uniform),
             self.max_iters, p(torch.cuda.current_stream(dev).cuda_stream))

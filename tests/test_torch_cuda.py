@@ -51,19 +51,24 @@ def test_kernel_matches_twin(cuda, rate, frame, n_cw):
 
 @pytest.mark.parametrize("lo,hi,rows,max_iters,segments", [
     (0.6, 0.9, 128, 12, None), (0.6, 0.9, 128, 12, [60, 68]),
-    (0.5, 0.8, 32, 15, None)])
+    (0.5, 0.8, 32, 15, None), (0.6, 0.9, 128, 12, [74, 54])])
 def test_kernel_keeps_the_tile_exit(cuda, lo, hi, rows, max_iters, segments):
     """The SHORT r2/3 loads of tests/test_torch_ldpc_tile.py, where the
-    Pallas tile exit is not leaving per codeword (the last one needs the
-    decoder's mask and final passes): bytes, ok, iters, clean exact
-    against the twin under the tile contract."""
+    Pallas tile exit is not leaving per codeword (in the third a codeword
+    relapses and holds its tile), and the first as segments of 74 and 54
+    (the pod's per-shard tiles are 128 + 74): bytes, ok, iters, clean
+    exact against the twin under the tile contract, in one launch of the
+    decoder."""
     from chip_smoke import check_kernel_against_twin, noisy_load
     from sdr_receiver_dvb_t2_tpu_torch.params.modes import (
         CodeRate, FecFrame, PlpConfig)
     plp = PlpConfig(code_rate=CodeRate.C2_3, fec_frame=FecFrame.SHORT)
+    from sdr_receiver_dvb_t2_tpu_torch.ops import ldpc
     llr = torch.from_numpy(noisy_load(2, lo, hi)[:rows]).to(cuda)
+    before = ldpc.LayeredDecoder.launches
     res, _, _ = check_kernel_against_twin(llr, plp, max_iters, segments)
     assert res["max_abs_err"] == 0
+    assert ldpc.LayeredDecoder.launches == before + 1
 
 
 def test_shared_memory_is_sized_alike_in_c_and_python(cuda):

@@ -138,3 +138,34 @@ def test_tile_index_counts_from_each_segment():
         [0, 0, 1, 2, 2, 3, 3, 4])
     np.testing.assert_array_equal(ldpc.tile_index(None, 300),
                                   np.arange(300) // 128)
+
+
+def _kernel_tile_of(starts, cw):
+    """The decoder kernel's lookup (ldpc_layered.cu): the last tile that
+    starts at or before codeword cw, by bisection over the table."""
+    tile, past = 0, len(starts) - 1
+    while past - tile > 1:
+        mid = (tile + past) // 2
+        if starts[mid] <= cw:
+            tile = mid
+        else:
+            past = mid
+    return tile
+
+
+@pytest.mark.parametrize("segments,w", [
+    (None, 1616),                       # one segment: the flagship batch
+    ([202] * 64, 12928),                # the pod's 64 segments of 202
+    ([1, 127, 128, 129, 0, 1], 386),    # around a tile, and an empty one
+])
+def test_kernel_tile_table_equals_tile_index(segments, w):
+    """The table the kernel finds a codeword's tile in gives the tiles of
+    tile_index, which the twin exits by; no tile is empty or longer than
+    128 codewords."""
+    starts = ldpc.tile_starts(segments, w)
+    tile = ldpc.tile_index(segments, w)
+    assert starts[0] == 0 and starts[-1] == w
+    assert len(starts) == int(tile.max()) + 2
+    assert all(1 <= b - a <= ldpc.TILE for a, b in zip(starts, starts[1:]))
+    np.testing.assert_array_equal(
+        [_kernel_tile_of(starts, c) for c in range(w)], tile)
