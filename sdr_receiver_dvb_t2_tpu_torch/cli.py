@@ -387,11 +387,13 @@ def run_pod(args) -> int:
         from .runtime.monitor import PodMonitor
         mon = PodMonitor(interval=float(cfg["monitor"]))
     try:
-        for hard, stats in rx.stream(
+        # each PLP's TS is parsed from its BB frames' bytes, so the
+        # stream unpacks no bits
+        for _, stats in rx.stream(
                 stream_src, mu0, lock.step, freq=lock.freq,
                 max_steps=max_steps, track=bool(cfg.get("track", True)),
                 track_l1=bool(cfg.get("track_l1", True)), relock=relock,
-                locked=lock.locked, frame_idx0=lock.frame_idx0):
+                locked=lock.locked, frame_idx0=lock.frame_idx0, bits=False):
             if mon is not None:
                 mon.maybe_render(stats, pkts, n_steps)
             for e in stats["events"]:

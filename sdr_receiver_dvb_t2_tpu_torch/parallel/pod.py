@@ -35,9 +35,11 @@ from __future__ import annotations
 
 import bisect
 import copy
+import os
 import queue as queue_mod
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -119,8 +121,15 @@ class ChannelStore:
         self._end = np.zeros(n_channels, np.int64)
         self._eof = np.zeros(n_channels, bool)
         self._free: list[np.ndarray] = []  # recycled granules (all chans)
-        self.bytes_copied = 0          # diagnostics: host copy churn
+        # diagnostics: host copy churn, a count a channel (stream() copies
+        # distinct channels' windows on worker threads at once)
+        self._copied = [0] * n_channels
         self.readers = readers
+
+    @property
+    def bytes_copied(self) -> int:
+        """Bytes copied into the store and out of it, all channels."""
+        return sum(self._copied)
 
     def _tail_space(self, c: int) -> tuple[np.ndarray, int]:
         """(tail granule, fill) with at least one writable sample, opening
@@ -144,7 +153,7 @@ class ChannelStore:
             base[fill:fill + take] = blk[done:done + take]
             self.commit(c, take)
             done += take
-        self.bytes_copied += n * 8
+        self._copied[c] += n * 8
 
     def borrow(self, c: int) -> np.ndarray:
         """Writable complex64 scratch at the channel's tail (page-warm
@@ -217,7 +226,7 @@ class ChannelStore:
             out[done:done + take] = b[off:off + take]
             done += take
             i += 1
-        self.bytes_copied += m * 8
+        self._copied[c] += m * 8
 
     def window_into(self, c: int, a: int, n: int, out: np.ndarray) -> int:
         """The n samples at absolute a into out[:n]: the held ones at
@@ -449,6 +458,30 @@ class _ArrayStore:
         pass
 
 
+def _copy_windows(store, w0: np.ndarray, win: int, buf: np.ndarray,
+                  pool=None) -> np.ndarray:
+    """buf[c, t] = the ``win`` samples at w0[c, t] of channel c's store
+    (``window_into``), one task a channel on ``pool`` (a thread pool;
+    None: in turn on this thread).  numpy's copies release the
+    interpreter's lock, so the channels' copies run at once; a store
+    touches only channel c's state in ``window_into(c, ...)``.  Returns
+    short [C, n_time]: the windows not all held (a live shortfall, a dark
+    channel's thin store), which are zero where samples are missing."""
+    n_ch, n_time = w0.shape
+    short = np.zeros((n_ch, n_time), bool)
+
+    def channel(c):
+        for t in range(n_time):
+            short[c, t] = store.window_into(c, int(w0[c, t]), win,
+                                            buf[c, t]) < win
+    if pool is None:
+        for c in range(n_ch):
+            channel(c)
+    else:
+        list(pool.map(channel, range(n_ch)))
+    return short
+
+
 def _drop_shards(res: "sharding.FecResult", short: np.ndarray) -> None:
     """Mark every codeword of the (channel, shard)s in ``short``
     ([C, n_time] bool) failed and give it a BB frame that fails its
@@ -672,7 +705,8 @@ class MultiChannelReceiver:
                track: bool = False, cfo_gain: float = 0.3,
                sro_gain: float = 0.5, track_l1: bool = False,
                relock: bool = False, locked=None, frame_idx0=0,
-               dead_after: int = 3, relock_exhausted: int = 8):
+               dead_after: int = 3, relock_exhausted: int = 8,
+               bits: bool = True):
         """Generator over consecutive steps of a continuous capture.
 
         raw: [C, N] complex64 (one continuous stream per channel) OR a
@@ -690,6 +724,16 @@ class MultiChannelReceiver:
         with every BCH-dirty codeword of a live channel corrected on the
         host (one the BCH cannot correct, and any dirty codeword of a
         dark channel, reaches it as a BB frame whose header fails).
+        ``bits=False`` yields those bits packed, the BB frames' bytes
+        [C, n_time*F, n_fec, n_bch/8] (``stats["plp_results"][0]
+        .bb_bytes``), and unpacks nothing.
+
+        Step N + 1's windows are copied and its plane launched on the
+        card before step N is yielded (a channel's copies on a worker
+        thread), so the card works while the caller takes step N; the
+        estimates of step N steer step N + 1 all the same.  No step is
+        launched beyond ``max_steps`` or past the end of the store; on a
+        live store step N is yielded once step N + 1's samples are held.
 
         ``track=True`` closes the CFO / sampling-rate loops PER CHANNEL:
         the [C] guard-interval and pilot-drift discriminators (means over
@@ -748,204 +792,228 @@ class MultiChannelReceiver:
         l1_dyn_errors = 0
         n = 0
         # the windows' staging buffer, pinned when a card reads it: one
-        # copy a step that does not block.  Reusing it is safe because
-        # each step's fec_finish waits for all device work queued before
-        # its copies to the host, this buffer's copy included.
+        # copy a step that does not block.  Step N + 1's windows are
+        # copied into it after step N's fec_finish, which waits for all
+        # device work queued before its copies to the host, step N's copy
+        # of this buffer included, so one buffer serves every step.
         on_card = any(d.type == "cuda" for row in rx.mesh.devices
                       for d in row)
         buf_t = torch.empty((C, self.n_time, win), dtype=torch.complex64,
                             pin_memory=on_card)
         buf = buf_t.numpy()
-        while True:
+        # the window copies: a channel a task, as many at once as the
+        # host has cores
+        workers = min(C, os.cpu_count() or 1)
+        pool = (ThreadPoolExecutor(workers, thread_name_prefix="pod-window")
+                if workers > 1 else None)
+
+        def launch():
+            """The next step's windows into buf_t and its plane launched
+            on the card: (plane, short, e_total, idx_next); None at the
+            end of the store, with nothing launched."""
             e_off, e_total, idx_next = self._frame_offsets(frame_idx)
             r0 = r_frame[:, None] + raw_per_elem0[:, None] * e_off
             w0, idx0, frac0, phase0 = rx.host_bases_windows(
                 r0, step, phase_origin, freq)
             live = alive if alive.any() else np.ones(C, bool)
             # pull/verify availability per LIVE channel (a ChannelStore
-            # blocks in its readers; an array store just bounds-checks)
+            # blocks in its readers; an array store just bounds-checks),
+            # on this thread: a store's ingest is single-threaded
             for c in np.nonzero(live)[0]:
                 if not store.ensure(c, int(w0[c].max()) + win):
-                    return
-            # per-(channel, shard) contiguous copies into the staging
-            # buffer, a memcpy each; a window not all held (a live
-            # shortfall, a dark channel's thin store) is zero where its
-            # samples are missing, and decodes nothing this step
-            short = np.zeros((C, self.n_time), bool)
-            for c in range(C):
-                for t in range(self.n_time):
-                    short[c, t] = store.window_into(
-                        c, int(w0[c, t]), win, buf[c, t]) < win
-
+                    return None
+            # a window not all held (a live shortfall, a dark channel's
+            # thin store) is zero where its samples are missing, and
+            # decodes nothing this step
+            short = _copy_windows(store, w0, win, buf, pool)
             plane = rx.plane_step_windows(buf_t, idx0, frac0, phase0,
                                           freq, step)
-            events: list = []
-            post = None
-            if track_l1:
-                # decode from the first ALIVE channel, falling back across
-                # alive channels on erasure — a dark channel 0 must not
-                # blind the whole pod to schedule changes
-                got = None
-                for c in np.nonzero(alive)[0]:
-                    got = self._decode_l1(plane, int(c))
+            return plane, short, e_total, idx_next
+
+        try:
+            nxt = launch()
+            while nxt is not None:
+                plane, short, e_total, idx_next = nxt
+                events: list = []
+                post = None
+                if track_l1:
+                    # decode from the first ALIVE channel, falling back across
+                    # alive channels on erasure — a dark channel 0 must not
+                    # blind the whole pod to schedule changes
+                    got = None
+                    for c in np.nonzero(alive)[0]:
+                        got = self._decode_l1(plane, int(c))
+                        if got is not None:
+                            break
                     if got is not None:
-                        break
-                if got is not None:
-                    pre, post = got
-                    post_cache = post
-                    dyn_next = (post.dyn_next
-                                if pre.l1_repetition_flag
-                                and post.dyn_next.plp else None)
-                elif inband_next is not None and post_cache is not None:
-                    # preferred repair: the previous step's data path
-                    # carried next-frame schedules in the BB padding
-                    # (in-band type A re-arms every step; repetition's
-                    # dyn_next is single-use)
-                    post = self._repair_from_inband(
-                        inband_next, post_cache, int(frame_idx[0]))
-                    post_cache = post
-                    inband_next = None
-                    inband_repaired += 1
-                    events.append("l1_dyn: repaired from in-band type A")
-                elif dyn_next is not None and post_cache is not None:
-                    post = copy.copy(post_cache)
-                    post.dyn = dyn_next          # one frame of diversity
-                    dyn_next = None
-                    events.append("l1_dyn: repaired from L1 repetition")
-                else:
-                    l1_dyn_errors += int(alive.any())
-                if post is not None:
-                    self._apply_l1_dyn(post, events)
-                    # broadcast FRAME_IDX re-anchors the FEF arithmetic
-                    # (drift would misplace the gap hop); per-channel
-                    # resync when channels are offset captures
-                    if rx.cfg.fef is not None:
-                        n_t2 = max(1, rx.cfg.num_t2)
-                        frame_idx[0] = post.dyn.frame_idx % n_t2
-                        for c in range(1, C):
-                            if not alive[c]:
-                                continue
-                            gc = self._decode_l1(plane, c)
-                            if gc is not None:
-                                frame_idx[c] = gc[1].dyn.frame_idx % n_t2
-                        e_off, e_total, idx_next = self._frame_offsets(
-                            frame_idx)
-
-            # every PLP's device work queued before the host waits
-            pending = [rx.fec_step_async(plane, i)
-                       for i in range(len(rx.plps))]
-            results = [rx.fec_finish(p, correct=alive) for p in pending]
-            for res in results:
-                _drop_shards(res, short)
-            fec = results[0]
-            hard = np.unpackbits(fec.bb_bytes, axis=-1)
-            diag = plane.diag_host()
-            if track_l1 and alive.any():
-                blk = self._harvest_inband(fec, post_cache,
-                                           int(np.argmax(alive)))
-                if blk is not None:
-                    inband_next = blk
-                    inband_blocks += 1
-
-            # ---- per-channel health / relock -------------------------
-            ch_clean = fec.bch_clean.reshape(C, -1).any(axis=1)
-            dead_steps = np.where(ch_clean, 0, dead_steps + 1)
-            just_relocked = np.zeros(C, bool)
-            if relock:
-                newly_dead = alive & (dead_steps >= dead_after)
-                if newly_dead.any():
-                    for c in np.nonzero(newly_dead)[0]:
-                        events.append(f"relock: ch{c} dead "
-                                      f"({dead_steps[c]} dirty steps)")
-                    alive &= ~newly_dead
-                for c in np.nonzero(~alive)[0]:
-                    status, got = self._try_relock(store, c, r_frame[c],
-                                                   float(step[c]), events)
-                    if status != "ok":
-                        relock_fail[c] += 1
-                        if (status == "nolock"
-                                and relock_fail[c] % relock_exhausted == 0):
-                            events.append(
-                                f"relock: ch{c} exhausted "
-                                f"{relock_fail[c]} blind searches — "
-                                "channel config may have changed or "
-                                "signal lost")
+                        pre, post = got
+                        post_cache = post
+                        dyn_next = (post.dyn_next
+                                    if pre.l1_repetition_flag
+                                    and post.dyn_next.plp else None)
+                    elif inband_next is not None and post_cache is not None:
+                        # preferred repair: the previous step's data path
+                        # carried next-frame schedules in the BB padding
+                        # (in-band type A re-arms every step; repetition's
+                        # dyn_next is single-use)
+                        post = self._repair_from_inband(
+                            inband_next, post_cache, int(frame_idx[0]))
+                        post_cache = post
+                        inband_next = None
+                        inband_repaired += 1
+                        events.append("l1_dyn: repaired from in-band type A")
+                    elif dyn_next is not None and post_cache is not None:
+                        post = copy.copy(post_cache)
+                        post.dyn = dyn_next          # one frame of diversity
+                        dyn_next = None
+                        events.append("l1_dyn: repaired from L1 repetition")
                     else:
-                        # fresh lock: this channel's r_frame now points at
-                        # its NEXT frame; don't advance it again below
-                        r_frame[c], freq[c], frame_idx[c] = got
-                        phase_origin[c] = 0.0
-                        cfo_hz_applied[c] = (freq[c] * 2.0 * SAMPLE_RATE
-                                             * step[c] / (2 * np.pi))
-                        alive[c] = True
-                        dead_steps[c] = 0
-                        relock_fail[c] = 0
-                        just_relocked[c] = True
+                        l1_dyn_errors += int(alive.any())
+                    if post is not None:
+                        self._apply_l1_dyn(post, events)
+                        # broadcast FRAME_IDX re-anchors the FEF arithmetic
+                        # (drift would misplace the gap hop); per-channel
+                        # resync when channels are offset captures
+                        if rx.cfg.fef is not None:
+                            n_t2 = max(1, rx.cfg.num_t2)
+                            frame_idx[0] = post.dyn.frame_idx % n_t2
+                            for c in range(1, C):
+                                if not alive[c]:
+                                    continue
+                                gc = self._decode_l1(plane, c)
+                                if gc is not None:
+                                    frame_idx[c] = gc[1].dyn.frame_idx % n_t2
+                            _, e_total, idx_next = self._frame_offsets(
+                                frame_idx)
 
-            stats = dict(
-                ldpc_failures=int(np.sum(~fec.ldpc_ok[alive])),
-                bch_dirty=int(np.sum(~fec.bch_clean[alive])),
-                snr_db=float(np.mean(fec.snr_db[alive]))
-                if alive.any() else 0.0,
-                gi_cfo=diag["gi_cfo"], sro=diag["sro"],
-                ldpc_iters=int(np.max(fec.ldpc_iters)),
-                ldpc_failures_ch=np.sum(~fec.ldpc_ok, axis=(1, 2)),
-                bch_dirty_ch=np.sum(~fec.bch_clean, axis=(1, 2)),
-                snr_db_ch=fec.snr_db, alive=alive.copy(),
-                l1_dyn_errors=l1_dyn_errors,
-                inband_a_blocks=inband_blocks,
-                inband_repaired=inband_repaired, events=events,
-                relock_fail=relock_fail.copy(),
-                plp_results=results,
-                l1_post=post if post is not None else post_cache,
-                frame_idx=frame_idx.copy())
+                # every PLP's device work queued before the host waits
+                pending = [rx.fec_step_async(plane, i)
+                           for i in range(len(rx.plps))]
+                results = [rx.fec_finish(p, correct=alive) for p in pending]
+                for res in results:
+                    _drop_shards(res, short)
+                fec = results[0]
+                out = (np.unpackbits(fec.bb_bytes, axis=-1) if bits
+                       else fec.bb_bytes)
+                diag = plane.diag_host()
+                if track_l1 and alive.any():
+                    blk = self._harvest_inband(fec, post_cache,
+                                               int(np.argmax(alive)))
+                    if blk is not None:
+                        inband_next = blk
+                        inband_blocks += 1
 
-            # ---- tracking: apply step-N estimates to step N+1 --------
-            if track:
-                cfo_res = np.asarray(diag["gi_cfo"], np.float64)  # [C]
-                dfreq = np.where(alive & ~just_relocked,
-                                 cfo_gain * cfo_res / raw_per_elem0, 0.0)
-                # keep the NCO phase continuous at the current stream
-                # position when the frequency moves:
-                # phase(r) = origin + freq*r  must be invariant at r_frame
-                phase_origin = (phase_origin - dfreq * r_frame) % (2 * np.pi)
-                freq = freq + dfreq
-                cfo_hz_applied += np.where(
-                    alive & ~just_relocked,
-                    cfo_gain * cfo_res * SAMPLE_RATE / (2 * np.pi), 0.0)
-                slip = np.asarray(diag["sro"], np.float64) / sro_coeff
-                trim = np.where(alive & ~just_relocked,
-                                np.clip(-sro_gain * slip, -2e-5, 2e-5),
-                                0.0)
-                step *= (1.0 + trim)
-                stats["cfo_hz_applied"] = cfo_hz_applied.copy()
-                stats["sro_ppm_applied"] = (step * 2.0 / raw_per_elem0
-                                            - 1.0) * 1e6
-                # CIR-anchored first-path timing (SFN plans): keep every
-                # echo inside [0, GI] like the single-channel loop
-                cir_p = diag.get("cir_p")
-                if cir_p is not None:
-                    d = rx.plans[0].eq.cir_d
-                    # just_relocked channels' cir_p came from pre-relock
-                    # (dark/zeroed) windows — never steer from it
-                    for c in np.nonzero(alive & ~just_relocked)[0]:
-                        prof = cir_p[c]
-                        first = int(d[int(np.argmax(
-                            prof >= 0.08 * float(prof.max())))])
-                        if abs(first) > 6:
-                            nudge = int(np.clip(first // 2, -24, 24))
-                            r_frame[c] += nudge * 2.0 * step[c]
-                            events.append(f"timing: ch{c} cir nudge "
-                                          f"{nudge}")
+                # ---- per-channel health / relock -------------------------
+                ch_clean = fec.bch_clean.reshape(C, -1).any(axis=1)
+                dead_steps = np.where(ch_clean, 0, dead_steps + 1)
+                just_relocked = np.zeros(C, bool)
+                if relock:
+                    newly_dead = alive & (dead_steps >= dead_after)
+                    if newly_dead.any():
+                        for c in np.nonzero(newly_dead)[0]:
+                            events.append(f"relock: ch{c} dead "
+                                          f"({dead_steps[c]} dirty steps)")
+                        alive &= ~newly_dead
+                    for c in np.nonzero(~alive)[0]:
+                        status, got = self._try_relock(store, c, r_frame[c],
+                                                       float(step[c]), events)
+                        if status != "ok":
+                            relock_fail[c] += 1
+                            if (status == "nolock" and relock_fail[c]
+                                    % relock_exhausted == 0):
+                                events.append(
+                                    f"relock: ch{c} exhausted "
+                                    f"{relock_fail[c]} blind searches — "
+                                    "channel config may have changed or "
+                                    "signal lost")
+                        else:
+                            # fresh lock: this channel's r_frame now points at
+                            # its NEXT frame; don't advance it again below
+                            r_frame[c], freq[c], frame_idx[c] = got
+                            phase_origin[c] = 0.0
+                            cfo_hz_applied[c] = (freq[c] * 2.0 * SAMPLE_RATE
+                                                 * step[c] / (2 * np.pi))
+                            alive[c] = True
+                            dead_steps[c] = 0
+                            relock_fail[c] = 0
+                            just_relocked[c] = True
 
-            yield hard, stats
-            n += 1
-            if max_steps is not None and n >= max_steps:
-                return
-            r_frame = np.where(just_relocked, r_frame,
-                               r_frame + 2.0 * step * e_total)
-            frame_idx = np.where(just_relocked, frame_idx, idx_next)
-            # live stores: drop consumed raw, keeping a window of context
-            # (the next step's left lead plus relock look-back headroom)
-            for c in range(C):
-                store.trim_before(c, int(r_frame[c]) - 2 * win)
+                stats = dict(
+                    ldpc_failures=int(np.sum(~fec.ldpc_ok[alive])),
+                    bch_dirty=int(np.sum(~fec.bch_clean[alive])),
+                    snr_db=float(np.mean(fec.snr_db[alive]))
+                    if alive.any() else 0.0,
+                    gi_cfo=diag["gi_cfo"], sro=diag["sro"],
+                    ldpc_iters=int(np.max(fec.ldpc_iters)),
+                    ldpc_failures_ch=np.sum(~fec.ldpc_ok, axis=(1, 2)),
+                    bch_dirty_ch=np.sum(~fec.bch_clean, axis=(1, 2)),
+                    snr_db_ch=fec.snr_db, alive=alive.copy(),
+                    l1_dyn_errors=l1_dyn_errors,
+                    inband_a_blocks=inband_blocks,
+                    inband_repaired=inband_repaired, events=events,
+                    relock_fail=relock_fail.copy(),
+                    plp_results=results,
+                    l1_post=post if post is not None else post_cache,
+                    frame_idx=frame_idx.copy())
+
+                # ---- tracking: apply step-N estimates to step N+1 --------
+                if track:
+                    cfo_res = np.asarray(diag["gi_cfo"], np.float64)  # [C]
+                    dfreq = np.where(alive & ~just_relocked,
+                                     cfo_gain * cfo_res / raw_per_elem0, 0.0)
+                    # keep the NCO phase continuous at the current stream
+                    # position when the frequency moves:
+                    # phase(r) = origin + freq*r  must be invariant at r_frame
+                    phase_origin = ((phase_origin - dfreq * r_frame)
+                                    % (2 * np.pi))
+                    freq = freq + dfreq
+                    cfo_hz_applied += np.where(
+                        alive & ~just_relocked,
+                        cfo_gain * cfo_res * SAMPLE_RATE / (2 * np.pi), 0.0)
+                    slip = np.asarray(diag["sro"], np.float64) / sro_coeff
+                    trim = np.where(alive & ~just_relocked,
+                                    np.clip(-sro_gain * slip, -2e-5, 2e-5),
+                                    0.0)
+                    step *= (1.0 + trim)
+                    stats["cfo_hz_applied"] = cfo_hz_applied.copy()
+                    stats["sro_ppm_applied"] = (step * 2.0 / raw_per_elem0
+                                                - 1.0) * 1e6
+                    # CIR-anchored first-path timing (SFN plans): keep every
+                    # echo inside [0, GI] like the single-channel loop
+                    cir_p = diag.get("cir_p")
+                    if cir_p is not None:
+                        d = rx.plans[0].eq.cir_d
+                        # just_relocked channels' cir_p came from pre-relock
+                        # (dark/zeroed) windows — never steer from it
+                        for c in np.nonzero(alive & ~just_relocked)[0]:
+                            prof = cir_p[c]
+                            first = int(d[int(np.argmax(
+                                prof >= 0.08 * float(prof.max())))])
+                            if abs(first) > 6:
+                                nudge = int(np.clip(first // 2, -24, 24))
+                                r_frame[c] += nudge * 2.0 * step[c]
+                                events.append(f"timing: ch{c} cir nudge "
+                                              f"{nudge}")
+
+                n += 1
+                nxt = None
+                if max_steps is None or n < max_steps:
+                    # step N + 1's positions follow from step N's tracking,
+                    # relock and trim, all done: its card work is launched
+                    # now and runs while the caller takes step N
+                    r_frame = np.where(just_relocked, r_frame,
+                                       r_frame + 2.0 * step * e_total)
+                    frame_idx = np.where(just_relocked, frame_idx, idx_next)
+                    # live stores: drop consumed raw, keeping a window of
+                    # context (the next step's left lead plus relock
+                    # look-back headroom)
+                    for c in range(C):
+                        store.trim_before(c, int(r_frame[c]) - 2 * win)
+                    # step N's device tensors go before step N + 1's are
+                    # made: the card holds one step's at a time
+                    del plane, pending
+                    nxt = launch()
+                yield out, stats
+        finally:
+            if pool is not None:
+                pool.shutdown()

@@ -122,6 +122,16 @@ class ShardedConfig:
 WINDOW_LEAD = 32
 
 
+def _to_device(a: np.ndarray, dev) -> torch.Tensor:
+    """A small host array on ``dev``, without waiting for the work queued
+    there: a copy to a card from pageable memory synchronises its stream,
+    so it goes through pinned memory (which the copy keeps until done)."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if torch.device(dev).type != "cuda":
+        return t.to(dev)
+    return t.pin_memory().to(dev, non_blocking=True)
+
+
 def front_end(x: torch.Tensor, idx0, frac0, phase0, freq, s_hi, s_lo,
               taps: torch.Tensor, hb: torch.Tensor, n_up: int,
               k_out: int) -> torch.Tensor:
@@ -338,8 +348,7 @@ class ShardedReceiver:
             xr = (rows if whole else rows[torch.from_numpy(loc[cells])]).to(
                 dev, non_blocking=True)
             ch = cells // nt
-            col = lambda a, idx: torch.from_numpy(      # noqa: E731
-                np.ascontiguousarray(a[idx])).to(dev)
+            col = lambda a, idx: _to_device(a[idx], dev)    # noqa: E731
             fir, hb = self._taps_on(dev)
             elem = front_end(xr, *(col(a, cells) for a in bases),
                              *(col(a, ch) for a in per_c), fir, hb,
@@ -353,7 +362,7 @@ class ShardedReceiver:
             if "cir_p" in diag:
                 cp = diag["cir_p"]
                 stats["cir_p"] = cp.reshape(n, -1, cp.shape[-1]).mean(1)
-            first = torch.from_numpy(np.nonzero(cells % nt == 0)[0]).to(dev)
+            first = _to_device(np.nonzero(cells % nt == 0)[0], dev)
             sig = eq.reshape(n, -1, mode.frame_symbols * mode.k_total)[
                 first, 0][:, consts["sig_idx"][:self.n_sig]]
             shards.append(PlaneShards(dev, cells, eq, diag.get("csi"),

@@ -442,3 +442,56 @@ def test_pod_step_cuda_equals_cpu(cuda):
     assert cf.ldpc_ok.all() and cf.bch_clean.all()
     for a in ("bb_bytes", "ldpc_ok", "ldpc_iters", "bch_clean"):
         np.testing.assert_array_equal(getattr(gf, a), getattr(cf, a))
+
+
+def test_pod_stream_cuda_equals_cpu(cuda):
+    """MultiChannelReceiver.stream with tracking and dynamic L1, each
+    step's plane launched on the card before the step before it is
+    yielded (the small per-shard arrays through pinned memory, one pinned
+    window buffer for every step), on two 2K channels against the same
+    stream on the CPU: as many steps, the same BB bytes (bits=False) and
+    channels alive, tracking within float tolerance."""
+    from sdr_receiver_dvb_t2_tpu_torch.models.channel import (
+        ChannelConfig, impair)
+    from sdr_receiver_dvb_t2_tpu_torch.models.transmitter import (
+        Transmitter, TxConfig, random_ts_stream)
+    from sdr_receiver_dvb_t2_tpu_torch.parallel import pod, sharding
+    from sdr_receiver_dvb_t2_tpu_torch.params.modes import (
+        SAMPLE_RATE, CodeRate, Constellation, FecFrame, FftMode,
+        GuardInterval, PilotPattern, PlpConfig, T2Mode)
+    mode = T2Mode(FftMode.FFT_2K, GuardInterval.G1_8, PilotPattern.PP7,
+                  False, n_data_symbols=30)
+    plp = PlpConfig(constellation=Constellation.QAM16,
+                    code_rate=CodeRate.C1_2, fec_frame=FecFrame.SHORT,
+                    rotation=True, time_il_length=1)
+    tx = Transmitter(TxConfig(mode=mode, plp=plp, fec_blocks_per_frame=4,
+                              num_t2_frames=6))
+    iq = tx.modulate(random_ts_stream(260, seed=9))
+    rate = 10e6
+    freq = np.array([0.0, 2 * np.pi * 2e3 / rate])
+    raw = np.stack([impair(iq, ChannelConfig(device_rate=rate, cfo_hz=cfo,
+                                             snr_db=30.0, seed=c))
+                    for c, cfo in enumerate((0.0, 2e3))])
+    cfg = sharding.ShardedConfig(mode=mode, plp=plp, n_fec_per_frame=4,
+                                 l1_post_cells=tx.l1_pre.l1_post_size)
+    step = rate / (2 * SAMPLE_RATE)
+    out = {}
+    for d in ("cuda", "cpu"):
+        rx = pod.MultiChannelReceiver(
+            cfg, sharding.make_mesh(2, 1, devices=[d] * 2))
+        mu = ((rx.rx.n_taps - 1) / 4.0 - 1.0) / (SAMPLE_RATE / rate)
+        # from frame 1 on: frame 0 has no left lead in the capture
+        mu0 = mu + mode.frame_samples * rate / SAMPLE_RATE
+        out[d] = [(bb.copy(), stats) for bb, stats in rx.stream(
+            raw, mu0, step, freq=freq, track=True, track_l1=True,
+            bits=False)]
+    gpu, cpu = out["cuda"], out["cpu"]
+    assert len(gpu) == len(cpu) >= 3
+    for (gb, gs), (cb, cs) in zip(gpu, cpu):
+        assert cs["ldpc_failures"] == 0 and cs["bch_dirty"] == 0
+        np.testing.assert_array_equal(gb, cb)
+        np.testing.assert_array_equal(gs["alive"], cs["alive"])
+        np.testing.assert_allclose(gs["cfo_hz_applied"],
+                                   cs["cfo_hz_applied"], rtol=0, atol=0.5)
+        np.testing.assert_allclose(gs["sro_ppm_applied"],
+                                   cs["sro_ppm_applied"], rtol=0, atol=0.05)

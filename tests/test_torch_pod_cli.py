@@ -144,3 +144,67 @@ def test_pod_cli_without_cpu_needs_a_card(tmp_path):
     toml.write_text("\n".join(lines))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["--pod", str(toml)])
+
+
+def _two_plp_iq():
+    """Two PLPs of their own constellations and rates in one mux, and each
+    PLP's transmitted TS."""
+    from sdr_receiver_dvb_t2_tpu.models.transmitter import (
+        Transmitter, TxConfig, random_ts_stream)
+    from _torch_common import POD_MODE, mode_pair
+    jmode, _ = mode_pair(POD_MODE)
+    plp_a, _ = plp_pair({**POD_PLP, "plp_id": 0})
+    plp_b, _ = plp_pair({**POD_PLP, "plp_id": 1, "constellation": "QAM64",
+                         "code_rate": "C2_3", "rotation": False})
+    tx = Transmitter(TxConfig(mode=jmode, plps=[plp_a, plp_b],
+                              fec_blocks=[3, 4], num_t2_frames=6))
+    ts_a = random_ts_stream(7 * 3 * (plp_a.k_bch // 8 - 10) // 188, seed=1)
+    ts_b = random_ts_stream(7 * 4 * (plp_b.k_bch // 8 - 10) // 188, seed=2)
+    return tx.modulate_multi([ts_a, ts_b])
+
+
+@pytest.mark.parametrize("plps", [1, 2])
+def test_pod_cli_ts_from_bytes_is_the_bits_ts(tmp_path, monkeypatch, plps):
+    """run_pod parses each step's BB bytes from stream(bits=False): its TS
+    files are byte for byte those of the same run with the stream made to
+    unpack the bits, and the TS that the port's Python parser reads from
+    those bits (a PLP's bits as fec_finish gives them), for one PLP and
+    for two."""
+    from sdr_receiver_dvb_t2_tpu_torch.io.bbframe import BBFrameParser
+    from sdr_receiver_dvb_t2_tpu_torch.parallel import pod
+    from _torch_common import collect_ts
+    iq = pod_tx(6, seed=3)[0] if plps == 1 else _two_plp_iq()
+    lines = _write_channels(tmp_path, iq, 2, seed=5, cfo=plps == 1)
+    names = [f"ch{c}.ts" for c in range(2)] if plps == 1 else [
+        f"ch{c}-plp{p}.ts" for c in range(2) for p in range(2)]
+    toml = tmp_path / "channels.toml"
+    toml.write_text(("plp = \"all\"\n" if plps == 2 else "")
+                    + "track = true\ntrack_l1 = true\nrelock = false\n"
+                    "max_steps = 3\nmesh = [2, 1]\nstats = 0\n"
+                    + "\n".join(lines))
+    assert cli.main(["--pod", str(toml), "--cpu"]) == 0
+    from_bytes = {n: (tmp_path / n).read_bytes() for n in names}
+
+    stream, seen = pod.MultiChannelReceiver.stream, []
+
+    def with_bits(self, *a, **kw):
+        for hard, stats in stream(self, *a, **dict(kw, bits=True)):
+            seen.append((hard, stats))
+            yield hard, stats
+    monkeypatch.setattr(pod.MultiChannelReceiver, "stream", with_bits)
+    for n in names:
+        (tmp_path / n).unlink()
+    assert cli.main(["--pod", str(toml), "--cpu"]) == 0
+    assert len(seen) == 3
+    for n in names:
+        assert (tmp_path / n).read_bytes() == from_bytes[n], n
+        assert len(from_bytes[n]) >= 188 * 10, n
+    for p in range(plps):
+        out, parsers = [[], []], [BBFrameParser(), BBFrameParser()]
+        for hard, stats in seen:
+            res = stats["plp_results"][p]
+            bits = hard if p == 0 else np.unpackbits(res.bb_bytes, axis=-1)
+            collect_ts(parsers, bits, res.state.plp.k_bch, out)
+        for c in range(2):
+            name = f"ch{c}.ts" if plps == 1 else f"ch{c}-plp{p}.ts"
+            assert np.concatenate(out[c]).tobytes() == from_bytes[name], name
